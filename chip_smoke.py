@@ -3,37 +3,56 @@
 
     python3 chip_smoke.py [--docs N] [--seed S] [--profile PATH]
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line with its seconds:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA.
-2. build: the CUDA kernels built from ``mygramdb_tpu_torch/csrc`` (nvcc).
+2. build: the CUDA kernels built from ``mygramdb_tpu_torch/csrc`` (one
+   nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving path gives it, exact equality (integer work),
-   and both timed with CUDA events.
-4. serve: the server's own entry points (``Application`` with a seed file,
-   ``TcpServer``) at --docs documents of the synthetic EN+JA corpus; many
-   SEARCH and COUNT queries from concurrent connections, every answer held
-   against a numpy reference computed from the host CSR; then rows are
-   removed and the affected queries checked again. The kernels' launch
-   counters, the K1 launches by form and the queries per device route are
-   reset just before the queries and read just after.
-5. profile (only with --profile): on the same server, each query class
-   alone at 1 and 64 connections, then ``torch.profiler`` over a window of
-   mixed queries: QPS, latency, average batch, the device's busy share and
-   the top device and host operations (all lines also written to PATH).
+   both timed with CUDA events, beside the least time the card could take
+   (bytes over 3.35 TB/s or 32-bit operations over 67 T/s, whichever is
+   larger). K1 row-AND, K3 slice gather; K4 flat-pack, K5 live-prefix and
+   K6 padded-matrix window TF, on u16 and u32 packs, both count modes,
+   with and without the range mask, cap 4 and 32, 2 and 4 needles; K6
+   over a matrix of the verified serve's row width at the fused
+   program's shape and at the text store's own (whole rows of a
+   65,536-candidate chunk).
+4. verified serve: the server's own entry points (``Application`` with a
+   seed file, ``TcpServer``) at --docs documents of the synthetic EN+JA
+   corpus with ``memory.verify_text: all`` and the auto text layout (the
+   padded matrix, K6): SEARCH over CJK substrings and EN words, two-term
+   AND, NOT (the exact path and the text store's verify), FILTER, COUNT
+   and ``SORT _score DESC`` with one and two terms, every answer held
+   against an independent reference (gram-AND candidates from the host
+   CSR, then Python substring checks over the stored texts; BM25
+   recomputed in numpy with ``str.count``); then rows are removed and the
+   affected queries asked again.
+5. flat verified serve: the same at FLAT_DOCS documents with
+   ``MYGRAM_TEXT_LAYOUT=flat`` (K4 and K5).
+6. plain serve: PR 1's unverified SEARCH/COUNT serve at PLAIN_DOCS
+   documents (K1, K3), answers held against the numpy reference.
+7. profile (only with --profile): after the verified and the plain
+   serve, on the same server, each query class alone at 1 and 64
+   connections, then ``torch.profiler`` over mixed queries (all lines
+   also appended to PATH, tagged with the serve).
 
-The last two lines are the kernel summary and ``{"ok": true, "device":
-...}``. Any failure exits non-zero before them. Without a CUDA device, or
-without the repository beside it, the script exits non-zero.
+Each serve phase sets the kernels' launch counters and the route counters
+to 0 just before its queries and reads them just after. The last lines
+are the card, the kernel summary and ``{"ok": true, "device": ...}``. Any
+failure exits non-zero before them. Without a CUDA device, or without the
+repository beside it, the script exits non-zero.
 """
 
 import sys
 
 sys.modules["jax"] = None  # any path that still reaches JAX fails here
+sys.modules["mygramdb_tpu"] = None  # and so does the JAX package
 
 import argparse  # noqa: E402
 import asyncio  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
@@ -44,13 +63,29 @@ from functools import reduce  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-K1_SOURCE = "mygramdb_tpu_torch/csrc/dense_and.cu"
-K3_SOURCE = "mygramdb_tpu_torch/csrc/slice_gather.cu"
-K1_REPLACES = "mygramdb_tpu/ops/bitmap_ops.py:184"
-K3_REPLACES = "mygramdb_tpu/ops/posting_ops.py:69"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "dense_and": ("mygramdb_tpu_torch/csrc/dense_and.cu",
+                  "mygramdb_tpu/ops/bitmap_ops.py:184"),
+    "slice_gather": ("mygramdb_tpu_torch/csrc/slice_gather.cu",
+                     "mygramdb_tpu/ops/posting_ops.py:69"),
+    "tf_rows_flat": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
+                     "mygramdb_tpu/ops/verify_ops.py:669"),
+    "tf_rows_flat_global": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
+                            "mygramdb_tpu/ops/verify_ops.py:875"),
+    "tf_rows_padded": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
+                       "mygramdb_tpu/ops/verify_ops.py:489"),
+}
+FLAT_DOCS = 100_000    # documents of the flat-layout verified serve
+PLAIN_DOCS = 300_000   # documents of the unverified serve
+# maxT of the verified serve's corpus (its p99 document passes 512 code
+# points): the padded matrix's rows are TEXT_MAXT + NEEDLE_CAP cells
+TEXT_MAXT = 1024
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+INT32_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
 KEYWORDS = {"and", "or", "not", "filter", "sort", "limit", "offset",
             "highlight", "fuzzy", "asc", "desc", "tag", "snippet_len",
             "max_fragments"}
+K1_BM25, B_BM25 = 1.2, 0.75  # the config's bm25 defaults
 
 
 class SmokeFailure(Exception):
@@ -73,6 +108,14 @@ def card_line() -> str:
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the 32-bit rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +141,9 @@ def cuda_ms(fn, reps: int = 25) -> float:
 
 
 def kernel_phase(gen):
-    """-> {kernel name: {"max_abs_err", "ms", "plain_ms"}}; raises on a
-    mismatch. ms/plain_ms are at the serving path's batched shape."""
+    """K1 and K3 -> {kernel name: {"max_abs_err", "ms", "plain_ms",
+    "bound_ms", "bound_by", "shape"}}; raises on a mismatch. ms/plain_ms
+    are at the serving path's batched shape."""
     import torch
     from mygramdb_tpu_torch.ops import bitmap_ops, posting_ops
     dev = torch.device("cuda")
@@ -146,13 +190,17 @@ def kernel_phase(gen):
                         rows_out.append((W, B, K, has_not, has_extra,
                                          int(c.sum())))
         if W == 34816:
-            rows8 = torch.randint(0, V, (64, 8), dtype=torch.int32,
+            B, K = 64, 8
+            rows8 = torch.randint(0, V, (B, K), dtype=torch.int32,
                                   generator=gen).to(dev)
             args = (bm, rows8, None, None, deleted)
             ms = cuda_ms(lambda: bitmap_ops.dense_and(*args))
             plain_ms = cuda_ms(lambda: bitmap_ops._dense_query_plain(*args))
+            distinct = int(torch.unique(rows8).numel())
+            k1_bound = bound(4 * (distinct * W + W + B * K + B * W + B),
+                             B * (K + 1) * W)
     out["dense_and"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "shape": "B=64 K=8 W=34816"}
+                        "shape": "B=64 K=8 W=34816", **k1_bound}
     emit({"phase": "kernels", "kernel": "dense_and", "configs":
           len(rows_out), "nonzero_counts":
           sum(1 for r in rows_out if r[-1] > 0)})
@@ -187,25 +235,229 @@ def kernel_phase(gen):
                                                    2048))
     plain_ms = cuda_ms(lambda: posting_ops._gather_slices_plain(
         post, offs64, lens64, 2048))
+    read = int(lens64.clamp(max=2048).sum())
     out["slice_gather"] = {"max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms,
-                           "shape": "K=64 bucket=2048"}
+                           "shape": "K=64 bucket=2048",
+                           **bound(4 * read + 4 * 64 * 2048 + 16 * 64, 0)}
     emit({"phase": "kernels", "kernel": "slice_gather", "buckets":
           [2048, 65536]})
     return out
 
 
+def synthetic_pack(gen, n_docs: int, u32: bool):
+    """A corpus-shaped pack on the card: lengths 30-500 (every 97th
+    document empty), cells from a 48-code-point alphabet (kanji, or
+    non-BMP code points for a u32 pack) so that needles match often.
+    -> (flat cells int16/int32, offsets int64, lengths int32)."""
+    import torch
+    dev = torch.device("cuda")
+    lens = torch.randint(30, 501, (n_docs,), generator=gen,
+                         dtype=torch.int32)
+    lens[::97] = 0
+    offs = torch.zeros(n_docs, dtype=torch.int64)
+    offs[1:] = torch.cumsum(lens[:-1].to(torch.int64), 0)
+    P = int(lens.sum())
+    base = 0x20000 if u32 else 0x4E00
+    cells = base + torch.randint(0, 48, (P,), generator=gen,
+                                 dtype=torch.int32)
+    if not u32:  # u16 bit patterns in int16
+        cells = torch.where(cells >= 0x8000, cells - 0x10000, cells)
+        cells = cells.to(torch.int16)
+    return cells.to(dev), offs.to(dev), lens.to(dev)
+
+
+def needle_rows(gen, cells, offs, lens, B: int, Nn: int, cap: int, u32):
+    """(B, Nn*cap) int32 needles in the compare domain cut from the pack
+    (lengths 3..cap; every fifth needle empty) and their (B, Nn)
+    lengths."""
+    import torch
+    from mygramdb_tpu_torch.ops import verify_ops
+    dev = cells.device
+    ndl = torch.zeros((B, Nn, cap), dtype=torch.int32)
+    nlen = torch.zeros((B, Nn), dtype=torch.int32)
+    docs = torch.nonzero(lens.cpu() >= cap).flatten()
+    for b in range(B):
+        for j in range(Nn):
+            if (b + j) % 5 == 4:
+                continue
+            L = int(torch.randint(3, cap + 1, (1,), generator=gen))
+            d = int(docs[int(torch.randint(0, docs.numel(), (1,),
+                                           generator=gen))])
+            p = int(offs[d]) + int(torch.randint(
+                0, int(lens[d]) - L + 1, (1,), generator=gen))
+            ndl[b, j, :L] = verify_ops.cells_i32(cells[p:p + L]).cpu()
+            nlen[b, j] = L
+    return ndl.reshape(B, Nn * cap).to(dev), nlen.to(dev)
+
+
+def tf_bound(ids, row_lens, nlen, owner, Kv: int, itemsize: int,
+             cap: int, extra_row_bytes: int, row_cells: int = 0) -> dict:
+    """Bound of one window-TF call from its inputs: each live row's
+    document read once (distinct documents; a padded row's whole
+    ``row_cells`` prefix, whose non-sentinel cells are its doc_len), the
+    row metadata, needles and the (M, Nn+1) output; operations = one
+    compare for every start at which each present needle could fit in
+    each live row."""
+    import torch
+    M = ids.numel()
+    B, Nn = nlen.shape
+    live = row_lens > 0
+    docs = torch.unique(ids[live])
+    doc_len = torch.zeros(int(ids.max()) + 1, dtype=torch.int64,
+                          device=ids.device)
+    doc_len[ids[live]] = row_lens[live].to(torch.int64)
+    text = (docs.numel() * row_cells if row_cells
+            else int(doc_len[docs].sum())) * itemsize
+    own = owner.long() if owner is not None else \
+        torch.arange(M, device=ids.device) // Kv
+    nl = nlen[own].to(torch.int64)                          # (M, Nn)
+    starts = (row_lens.to(torch.int64)[:, None] - nl + 1).clamp(min=0)
+    ops = int((starts * ((nl > 0) & live[:, None])).sum())
+    nbytes = (text + M * extra_row_bytes + 4 * M * (Nn + 1)
+              + 4 * B * Nn * (cap + 1))
+    return bound(nbytes, ops)
+
+
+def verify_kernel_phase(gen, n_docs: int):
+    """K4, K5, K6 against their plain versions at the serving shapes (64
+    queries x 2048 candidate slots over an n_docs pack, 60% of the slots
+    live, window 512), on u16 and u32 packs, cap 4 and 32, Nn 2 and 4,
+    both count modes, with and without the range mask; K5 with a dead
+    suffix. K6 reads a matrix of the verified serve's row width
+    (TEXT_MAXT + NEEDLE_CAP) at the fused program's shape (the 512-cell
+    prefix) and at the text store's own ("tf_rows_padded/store": one
+    needle set over a chunk of sorted candidate ids, whole rows). Timed at
+    u16, cap 4, Nn 2 (3-4 character CJK terms). -> {kernel: numbers}."""
+    import torch
+    from mygramdb_tpu_torch.ops import verify_ops as V
+    from mygramdb_tpu_torch.storage.device_text import (_C_CHUNK,
+                                                        _pad_on_device)
+    dev = torch.device("cuda")
+    B, Kv, maxT = 64, 2048, 512
+    M = B * Kv
+    rowT = TEXT_MAXT + V.NEEDLE_CAP
+    names = ("tf_rows_flat", "tf_rows_flat_global", "tf_rows_padded",
+             "tf_rows_padded/store")
+    out = {k: {"max_abs_err": 0} for k in names}
+    checks = 0
+    for u32 in (False, True):
+        cells, offs, lens = synthetic_pack(gen, n_docs, u32)
+        # the sentinel's bits (0xFFFF or 0xFFFFFFFF) are -1 in both types
+        padded = _pad_on_device(cells, offs, lens, rowT, -1)
+        ids = torch.randint(1, n_docs, (M,), generator=gen).to(dev)
+        alive = torch.rand(M, generator=gen).to(dev) < 0.6
+        row_lens = torch.where(alive, lens[ids], 0).to(torch.int32)
+        starts = offs[ids]
+        owner = torch.randint(0, B, (M,), generator=gen,
+                              dtype=torch.int32).to(dev)
+        live = torch.tensor([int(0.6 * M)], dtype=torch.int32, device=dev)
+        pk_lens = torch.where(torch.arange(M, device=dev) < live,
+                              lens[ids], 0).to(torch.int32)
+        # a text-store call: sorted distinct gram-match ids, all rows live
+        s_ids = torch.sort(torch.randperm(n_docs - 1, generator=gen)
+                           [:_C_CHUNK] + 1).values.to(dev)
+        s_lens = lens[s_ids].to(torch.int32)
+        for cap, Nn in ((4, 2), (32, 4)):
+            ndl, nlen = needle_rows(gen, cells, offs, lens, B, Nn, cap, u32)
+            # the store call's needle set: the one with the shortest needle
+            q = int(torch.where(nlen > 0, nlen, 99).min(1).values.argmin())
+            s_ndl, s_nlen = ndl[q:q + 1], nlen[q:q + 1]
+            calls = {
+                "tf_rows_flat": (
+                    lambda kw: V.tf_rows_flat(cells, starts, row_lens, ndl,
+                                              nlen, Kv=Kv, win=maxT, **kw),
+                    lambda kw: V._tf_flat_plain(cells, starts, row_lens,
+                                                ndl, nlen, Kv=Kv, win=maxT,
+                                                **kw)),
+                "tf_rows_flat_global": (
+                    lambda kw: V.tf_rows_flat_global(
+                        cells, starts, pk_lens, owner, live, ndl, nlen,
+                        win=maxT, **kw),
+                    lambda kw: V._tf_flat_global_plain(
+                        cells, starts, pk_lens, owner, live, ndl, nlen,
+                        win=maxT, **kw)),
+                "tf_rows_padded": (
+                    lambda kw: V.tf_rows_padded(padded, ids, row_lens, ndl,
+                                                nlen, Kv=Kv,
+                                                width=maxT + cap, **kw),
+                    lambda kw: V._tf_padded_plain(padded, ids, row_lens,
+                                                  ndl, nlen, Kv=Kv,
+                                                  width=maxT + cap, **kw)),
+                "tf_rows_padded/store": (
+                    lambda kw: V.tf_rows_padded(padded, s_ids, s_lens,
+                                                s_ndl, s_nlen, Kv=_C_CHUNK,
+                                                width=rowT, **kw),
+                    lambda kw: V._tf_padded_plain(padded, s_ids, s_lens,
+                                                  s_ndl, s_nlen,
+                                                  Kv=_C_CHUNK, width=rowT,
+                                                  **kw)),
+            }
+            for name, (kern, plain) in calls.items():
+                for use_range in (False, True):
+                    for nonoverlap in (False, True):
+                        kw = dict(cap=cap, use_range=use_range,
+                                  nonoverlap=nonoverlap)
+                        got, want = kern(kw), plain(kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"{name} disagrees: u32={u32} cap={cap} "
+                              f"Nn={Nn} use_range={use_range} "
+                              f"nonoverlap={nonoverlap}")
+                        check(int(got[:, :Nn].sum()) > 0,
+                              f"{name}: no needle matched")
+                        if name == "tf_rows_flat_global":
+                            check(not got[int(live):].any(),
+                                  f"{name}: dead suffix not zero")
+                        checks += 1
+                if u32 or cap != 4:
+                    continue
+                kw = dict(cap=cap, use_range=False, nonoverlap=False)
+                o = out[name]
+                o["ms"] = cuda_ms(lambda: kern(kw))
+                o["plain_ms"] = cuda_ms(lambda: plain(kw), reps=5)
+                o["shape"] = (f"M={M} (B={B} x {Kv}) win={maxT} cap={cap} "
+                              f"Nn={Nn} u16, {n_docs} docs")
+                if name == "tf_rows_flat_global":
+                    o.update(tf_bound(ids, pk_lens, nlen, owner, Kv, 2, cap,
+                                      16))
+                    o["shape"] += f", live {int(live)}"
+                elif name == "tf_rows_flat":
+                    o.update(tf_bound(ids, row_lens, nlen, None, Kv, 2,
+                                      cap, 12))
+                elif name == "tf_rows_padded":
+                    o.update(tf_bound(ids, row_lens, nlen, None, Kv, 2,
+                                      cap, 12, row_cells=maxT + cap))
+                    o["shape"] += f", rowT {rowT}, width {maxT + cap}"
+                else:
+                    o.update(tf_bound(s_ids, s_lens, s_nlen, None, _C_CHUNK,
+                                      2, cap, 12, row_cells=rowT))
+                    o["shape"] = (f"M={_C_CHUNK} (one store call, sorted "
+                                  f"ids) whole rows rowT={rowT} win="
+                                  f"{rowT - cap} cap={cap} Nn={Nn} u16, "
+                                  f"{n_docs} docs")
+        del cells, padded
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "tf_rows (K4, K5, K6)",
+          "checks": checks,
+          "timed": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "shape")}
+                    for k, v in out.items()}})
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: serve through the server's entry points
+# Serve phases
 # ---------------------------------------------------------------------------
 
-def write_inputs(docs: int, seed: int):
+def write_inputs(docs: int, seed: int, verified: bool):
     """Seed JSONL of the synthetic corpus + a JSON config; -> paths."""
     import numpy as np
     from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
-    os.makedirs(WORK, exist_ok=True)
+    work = os.path.join(WORK, f"{docs}_{int(verified)}")
+    os.makedirs(work, exist_ok=True)
     gen = CorpusGenerator(docs, ja_ratio=0.45, seed=seed)
-    seed_path = os.path.join(WORK, "seed.jsonl")
+    seed_path = os.path.join(work, "seed.jsonl")
     with open(seed_path, "w", encoding="utf-8") as f:
         for batch in gen.batches(50_000):
             f.write("".join(
@@ -219,10 +471,12 @@ def write_inputs(docs: int, seed: int):
         "cache": {"enabled": False},
         "api": {"tcp": {"bind": "127.0.0.1", "port": 0}},
         "network": {"allow_cidrs": ["127.0.0.0/8"]},
-        "dump": {"dir": os.path.join(WORK, "dumps")},
+        "dump": {"dir": os.path.join(work, "dumps")},
         "logging": {"level": "warn"},
     }
-    cfg_path = os.path.join(WORK, "config.json")
+    if verified:
+        cfg["memory"] = {"verify_text": "all"}
+    cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     status = np.arange(docs + 1, dtype=np.int64) % 3
@@ -239,16 +493,22 @@ def query_grams(ctx, raw: str):
 
 
 class Reference:
-    """Expected answers from the host CSR with numpy boolean doc masks
-    (no device code)."""
+    """Expected answers from the host CSR with numpy boolean doc masks,
+    and, for a verified table, Python substring checks over the stored
+    normalized texts and BM25 in numpy (no device code)."""
 
-    def __init__(self, ctx, status):
+    def __init__(self, ctx, status, texts=None):
+        import numpy as np
         self.ctx = ctx
         self.built = ctx.index.built
         self.td = ctx.index.term_dict
         self.status = status
         self.removed = set()
         self._cache = {}
+        self.texts = texts  # doc id -> normalized text (index 0 unused)
+        if texts is not None:
+            self.doc_len = np.asarray([len(t or "") for t in texts],
+                                      dtype=np.float64)
 
     def _mask(self, ids):
         import numpy as np
@@ -271,16 +531,54 @@ class Reference:
             self._cache[raw] = np.flatnonzero(m)
         return self._cache[raw]
 
+    def term_text_ids(self, raw: str):
+        """Docs holding every gram of the term whose stored text contains
+        the normalized term (all of them when the table verifies no
+        text)."""
+        import numpy as np
+        ids = self.term_ids(raw)
+        if self.texts is None:
+            return ids
+        key = ("text", raw)
+        if key not in self._cache:
+            n = self.ctx.normalize(raw)
+            self._cache[key] = np.asarray(
+                [d for d in ids.tolist() if n in self.texts[d]],
+                dtype=np.int64)
+        return self._cache[key]
+
     def ids(self, q: dict):
         import numpy as np
         m = reduce(lambda a, b: a & b,
-                   [self._mask(self.term_ids(t)) for t in q["terms"]])
+                   [self._mask(self.term_text_ids(t)) for t in q["terms"]])
         for t in q.get("not", ()):
             m &= ~self._mask(self.term_ids(t))
         if q.get("filter"):
             m &= self.status == 1
         m[list(self.removed)] = False
         return np.flatnonzero(m)
+
+    def bm25(self, q: dict, ids):
+        """BM25 of ids (reference bm25_scorer.h:41, query/bm25.py): IDF
+        from each term's gram-AND df over the live documents, TF by
+        non-overlapping ``str.count``, doc length in code points."""
+        import numpy as np
+        live = np.ones(self.doc_len.size, dtype=bool)
+        live[0] = False
+        live[list(self.removed)] = False
+        n_docs = int(live.sum())
+        avgdl = float(self.doc_len[live].sum()) / n_docs
+        score = np.zeros(ids.size, dtype=np.float64)
+        dl = self.doc_len[ids]
+        for t in q["terms"]:
+            df = int(live[self.term_ids(t)].sum())
+            idf = math.log((n_docs - df + 0.5) / (df + 0.5) + 1.0)
+            n = self.ctx.normalize(t)
+            tf = np.asarray([self.texts[d].count(n) for d in ids.tolist()],
+                            dtype=np.float64)
+            norm = K1_BM25 * (1.0 - B_BM25 + B_BM25 * dl / avgdl)
+            score += idf * tf * (K1_BM25 + 1.0) / (tf + norm)
+        return score
 
     def line(self, q: dict) -> str:
         ids = self.ids(q)
@@ -290,48 +588,93 @@ class Reference:
         return " ".join([f"OK RESULTS {ids.size}"] + [str(int(d))
                                                       for d in page])
 
+    def mismatch(self, q: dict, resp: str):
+        """None when resp is right. A score-ordered page must hold the
+        verified count and, at each position, an id whose reference score
+        is within 1e-5 relative of the reference ranking's score there
+        (float32 sums in another order), with no id twice."""
+        import numpy as np
+        if not q.get("score"):
+            want = self.line(q)
+            return None if resp == want else want
+        ids = self.ids(q)
+        sc = self.bm25(q, ids)
+        order = np.lexsort((-ids, -sc))
+        want_scores = sc[order][:100]
+        parts = resp.split()
+        if parts[:2] != ["OK", "RESULTS"] or int(parts[2]) != ids.size:
+            return f"OK RESULTS {ids.size} ..."
+        page = [int(x) for x in parts[3:]]
+        pos = {int(d): i for i, d in enumerate(ids.tolist())}
+        if len(page) != want_scores.size or len(set(page)) != len(page) \
+                or any(d not in pos for d in page):
+            return f"a page of {want_scores.size} verified ids"
+        got = sc[[pos[d] for d in page]]
+        tol = 1e-5 * np.maximum(np.abs(want_scores), 1e-9)
+        if (np.abs(got - want_scores) > tol).any():
+            return "ids ranked by " + " ".join(
+                f"{d}:{s:.7g}" for d, s in zip(ids[order][:10].tolist(),
+                                               want_scores[:10]))
+        return None
+
+
+def term_kind(ctx, word: str):
+    """None (a gram is unknown), "dense" (every gram is a bitmap row),
+    "probed" (a sparse driver with more grams to probe) or "single"."""
+    dense_row = ctx.index.device.dense_row
+    grams = query_grams(ctx, word)
+    tids = [ctx.index.term_dict.get(g) for g in grams]
+    if not grams or any(t is None for t in tids):
+        return None
+    if all(dense_row[t] >= 0 for t in tids):
+        return "dense"
+    return "probed" if len(grams) > 1 else "single"
+
+
+def pick_from(rng):
+    return lambda pool: pool[int(rng.integers(len(pool)))]
+
+
+def finish_queries(makers, rng, n: int, extra=()):
+    """n distinct queries drawn from weighted makers, plus extra."""
+    import numpy as np
+    weights = np.asarray([w for w, _ in makers])
+    out, seen = [], set()
+    while len(out) < n:
+        q = makers[int(rng.choice(len(makers), p=weights / weights.sum()))
+                   ][1]()
+        q["line"] = render(q)
+        if q["line"] not in seen:
+            seen.add(q["line"])
+            out.append(q)
+    for q in extra:
+        q["line"] = render(q)
+        out.append(q)
+    return out
+
+
+def search(terms, desc=True, **kw):
+    return dict(cmd="SEARCH", terms=terms, desc=desc, **kw)
+
 
 def make_queries(gen, ctx, n: int, seed: int):
-    """Distinct SEARCH/COUNT queries over every path of the slice."""
+    """Distinct SEARCH/COUNT queries over every path of the unverified
+    slice."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    dense_row = ctx.index.device.dense_row
-
-    def kind(word: str):
-        """None (a gram is unknown), "dense" (every gram is a bitmap row),
-        "probed" (a sparse driver with more grams to probe) or "single"."""
-        grams = query_grams(ctx, word)
-        tids = [ctx.index.term_dict.get(g) for g in grams]
-        if not grams or any(t is None for t in tids):
-            return None
-        if all(dense_row[t] >= 0 for t in tids):
-            return "dense"
-        return "probed" if len(grams) > 1 else "single"
-
+    pick = pick_from(rng)
     vocab = [w for w in gen.vocab[:60_000]
              if len(w) >= 2 and w not in KEYWORDS]
-    dense_w, sparse_w = [], []
-    for w in vocab[:3000]:
-        if kind(w) == "dense":
-            dense_w.append(w)
-    for w in vocab[500:]:
-        if kind(w) == "probed":
-            sparse_w.append(w)
+    dense_w = [w for w in vocab[:3000] if term_kind(ctx, w) == "dense"]
+    sparse_w = [w for w in vocab[500:] if term_kind(ctx, w) == "probed"]
     ja = [t for t in (gen.sample_ja_terms(3000, term_len=2, rng=rng)
                       + gen.sample_ja_terms(300, term_len=1, rng=rng))
-          if kind(t) is not None]
+          if term_kind(ctx, t) is not None]
     # a small corpus makes every ASCII bigram dense: CJK terms drive then
-    sparse_w = sparse_w or [t for t in ja if kind(t) != "dense"]
+    sparse_w = sparse_w or [t for t in ja if term_kind(ctx, t) != "dense"]
     check(len(dense_w) >= 50 and len(sparse_w) >= 50 and len(ja) >= 50,
           f"query pools too small: dense={len(dense_w)} "
           f"sparse={len(sparse_w)} ja={len(ja)}")
-
-    def pick(pool):
-        return pool[int(rng.integers(len(pool)))]
-
-    def search(terms, desc=True, **kw):
-        return dict(cmd="SEARCH", terms=terms, desc=desc, **kw)
-
     makers = [
         (0.22, lambda: search([pick(dense_w)], bool(rng.integers(2)))),
         (0.08, lambda: search([pick(dense_w), pick(dense_w)], True)),
@@ -348,20 +691,65 @@ def make_queries(gen, ctx, n: int, seed: int):
                             filter=bool(rng.integers(2)))),
         (0.04, lambda: search([pick(sparse_w), pick(sparse_w)], True)),
     ]
-    weights = np.asarray([w for w, _ in makers])
-    out, seen = [], set()
-    while len(out) < n:
-        q = makers[int(rng.choice(len(makers), p=weights / weights.sum()))
-                   ][1]()
-        q["line"] = render(q)
-        if q["line"] not in seen:
-            seen.add(q["line"])
-            out.append(q)
-    for i in range(max(n // 50, 10)):  # grams that do not exist at all
-        q = search([f"qzx{i}vj"], True)
-        q["line"] = render(q)
-        out.append(q)
-    return out
+    nogram = [search([f"qzx{i}vj"], True) for i in range(max(n // 50, 10))]
+    return finish_queries(makers, rng, n, nogram)
+
+
+def make_verified_queries(gen, ctx, texts, n: int, seed: int):
+    """Distinct queries for a verify_text table: 3- and 4-character CJK
+    substrings cut from the stored texts (so that some verify and some
+    only share grams), EN words with dense and sparse grams, two-term AND,
+    NOT, FILTER, COUNT and SORT _score with one and two terms and with a
+    self-overlapping term."""
+    import numpy as np
+    from mygramdb_tpu_torch.ops.verify_ops import has_self_overlap
+    rng = np.random.default_rng(seed)
+    pick = pick_from(rng)
+    ja_docs = [d for d in rng.integers(1, len(texts), 4000).tolist()
+               if texts[d] and not texts[d].isascii()]
+    cjk = []
+    for d in ja_docs:
+        t = texts[d]
+        L = 3 + len(cjk) % 2
+        p = int(rng.integers(0, len(t) - L))
+        if term_kind(ctx, t[p:p + L]) is not None:
+            cjk.append(t[p:p + L])
+    vocab = [w for w in gen.vocab[:20_000]
+             if len(w) >= 3 and w not in KEYWORDS]
+    dense_w = [w for w in vocab[:3000] if term_kind(ctx, w) == "dense"]
+    sparse_w = [w for w in vocab[200:6000] if term_kind(ctx, w) == "probed"]
+    # a small corpus makes every ASCII bigram dense: CJK terms drive then
+    sparse_w = sparse_w or [t for t in cjk if term_kind(ctx, t) != "dense"]
+    common = vocab[:300]
+    borders = [w for w in vocab[:2000] if has_self_overlap(w)
+               and term_kind(ctx, w) is not None]
+    check(min(len(cjk), len(dense_w), len(sparse_w), len(borders)) >= 20,
+          f"verified query pools too small: cjk={len(cjk)} "
+          f"dense={len(dense_w)} sparse={len(sparse_w)} "
+          f"borders={len(borders)}")
+    en = dense_w + sparse_w
+
+    def scored(terms):
+        return search(terms, True, score=True)
+
+    makers = [
+        (0.18, lambda: search([pick(cjk)], bool(rng.integers(2)))),
+        (0.10, lambda: search([pick(dense_w)], bool(rng.integers(2)))),
+        (0.10, lambda: search([pick(sparse_w)], bool(rng.integers(2)))),
+        (0.06, lambda: search([pick(en), pick(en)], True)),
+        (0.04, lambda: search([pick(cjk), pick(common)], True)),
+        (0.06, lambda: search([pick(common)], True,
+                              **{"not": [pick(dense_w)]})),
+        (0.08, lambda: search([pick(en + cjk)], bool(rng.integers(2)),
+                              filter=True)),
+        (0.10, lambda: dict(cmd="COUNT", terms=[pick(en + cjk)],
+                            filter=bool(rng.integers(2)))),
+        (0.10, lambda: scored([pick(en + cjk)])),
+        (0.08, lambda: scored([pick(en), pick(en + cjk)])),
+        (0.04, lambda: scored([pick(borders)])),
+        (0.06, lambda: scored([pick(common)])),
+    ]
+    return finish_queries(makers, rng, n)
 
 
 def render(q: dict) -> str:
@@ -372,7 +760,9 @@ def render(q: dict) -> str:
         parts += ["NOT", t]
     if q.get("filter"):
         parts += ["FILTER", "status", "=", "1"]
-    if q["cmd"] == "SEARCH":
+    if q.get("score"):
+        parts += ["SORT", "_score", "DESC", "LIMIT", "100"]
+    elif q["cmd"] == "SEARCH":
         parts += ["SORT", "id", "DESC" if q["desc"] else "ASC",
                   "LIMIT", "100"]
     return " ".join(parts)
@@ -392,7 +782,7 @@ async def drive(port: int, queries, conns: int):
                 t0 = time.perf_counter()
                 writer.write(q["line"].encode() + b"\r\n")
                 await writer.drain()
-                resp = await asyncio.wait_for(reader.readline(), 120)
+                resp = await asyncio.wait_for(reader.readline(), 300)
                 results.append((q, resp.decode().rstrip("\r\n"),
                                 time.perf_counter() - t0))
         finally:
@@ -402,21 +792,32 @@ async def drive(port: int, queries, conns: int):
     return results
 
 
-def serve_phase(docs: int, seed: int, n_queries: int = 2400,
-                conns: int = 64, profile_path: str = ""):
+def serve_phase(name: str, docs: int, seed: int, n_queries: int,
+                conns: int = 64, verified: bool = False,
+                layout: str = "auto", profile_path: str = "",
+                kernels=(), routes_needed=()):
+    """Load docs documents through ``Application``, serve n_queries over
+    TCP from conns connections, remove rows and re-ask; every answer is
+    checked. kernels and routes_needed must each have served queries in
+    this phase. -> (launches, summary)."""
     import numpy as np
     from mygramdb_tpu_torch.app.application import Application
     from mygramdb_tpu_torch.config import load_config
     from mygramdb_tpu_torch.ops import runtime
     from mygramdb_tpu_torch.server.tcp_server import TcpServer
 
+    t_phase = time.time()
     t0 = time.time()
-    gen, seed_path, cfg_path, status = write_inputs(docs, seed)
+    gen, seed_path, cfg_path, status = write_inputs(docs, seed, verified)
     t_corpus = time.time() - t0
     config = load_config(cfg_path)
     app = Application(config, seed_path=seed_path)
+    os.environ["MYGRAM_TEXT_LAYOUT"] = layout
     t0 = time.time()
-    app.initialize()
+    try:
+        app.initialize()
+    finally:
+        os.environ.pop("MYGRAM_TEXT_LAYOUT")
     t_init = time.time() - t0
     ctx = app.catalog.resolve("articles")
     check(ctx.doc_count == docs, f"loaded {ctx.doc_count} of {docs} docs")
@@ -424,14 +825,30 @@ def serve_phase(docs: int, seed: int, n_queries: int = 2400,
     check(dev._device.type == runtime.device().type,
           f"index on {dev._device}")
     dev.warmup()  # must not raise
-    emit({"phase": "load", "docs": ctx.doc_count, "corpus_s": t_corpus,
-          "initialize_s": t_init, "n_words": dev.n_words,
-          "dense_terms": dev.n_dense, "terms": int(dev.lengths.size),
-          "device_postings": int(dev.postings.numel()),
-          "device_bytes": dev.memory_usage()})
-
-    queries = make_queries(gen, ctx, n_queries, seed)
-    ref = Reference(ctx, status)
+    load = {"phase": name, "step": "load", "docs": ctx.doc_count,
+            "corpus_s": t_corpus, "initialize_s": t_init,
+            "n_words": dev.n_words, "dense_terms": dev.n_dense,
+            "terms": int(dev.lengths.size),
+            "device_postings": int(dev.postings.numel()),
+            "device_bytes": dev.memory_usage()}
+    texts = None
+    if verified:
+        st = ctx.fresh_device_text()
+        check(st is not None, "no device text store")
+        layout_got = "padded" if st.codepoints.dim() == 2 else "flat"
+        check(layout in ("auto", layout_got),
+              f"text layout {layout_got}, asked for {layout}")
+        texts = [None] + ctx.doc_store.texts_batch(list(range(1, docs + 1)))
+        load.update({"text_layout": layout_got, "maxT": st.maxT,
+                     "text_dtype": np.dtype(st.dtype).name,
+                     "text_shape": list(st.codepoints.shape),
+                     "text_bytes": st.memory_usage(),
+                     "text_overflow": len(st._overflow)})
+        queries = make_verified_queries(gen, ctx, texts, n_queries, seed)
+    else:
+        queries = make_queries(gen, ctx, n_queries, seed)
+    emit(load)
+    ref = Reference(ctx, status, texts)
     loop = asyncio.new_event_loop()
     server_thread = threading.Thread(target=loop.run_forever, daemon=True)
     server_thread.start()
@@ -460,13 +877,15 @@ def serve_phase(docs: int, seed: int, n_queries: int = 2400,
         forms = dict(runtime.launch_forms)
         routes = dict(runtime.routes)
         b1 = (batcher.batches_executed, batcher.queries_batched)
+        t0 = time.time()
         bad = []
         for answered, gone in ((results, set()), (results2, removed)):
             ref.removed = gone
             for q, resp, _ in answered:
-                want = ref.line(q)
-                if resp != want:
+                want = ref.mismatch(q, resp)
+                if want is not None:
                     bad.append((q["line"], resp[:200], want[:200]))
+        t_ref = time.time() - t0
         errors = sum(1 for _, r, _ in results + results2
                      if not r.startswith("OK"))
         lat = sorted(s for _, _, s in results)
@@ -476,30 +895,39 @@ def serve_phase(docs: int, seed: int, n_queries: int = 2400,
             k = query_class(ctx, q)
             classes[k] = classes.get(k, 0) + 1
         summary = {
-            "phase": "serve", "docs": docs, "queries": len(results),
+            "phase": name, "docs": docs, "queries": len(results),
             "requeried_after_remove": len(results2), "removed": len(removed),
             "mismatches": len(bad), "errors": errors, "connections": conns,
             "qps": len(results) / wall, "p50_ms": 1e3 * lat[len(lat) // 2],
             "p99_ms": 1e3 * lat[int(len(lat) * 0.99)],
             "batches": b1[0] - b0[0], "avg_batch": avg_batch,
+            "nonzero_answers": sum(1 for _, r, _ in results
+                                   if r not in ("OK RESULTS 0",
+                                                "OK COUNT 0")),
             "launches": launches, "launch_forms": forms, "routes": routes,
-            "query_classes": classes}
-        emit(summary)
+            "query_classes": classes, "reference_s": t_ref}
+        if verified:
+            summary["maxT"] = st.maxT
         check(not bad, f"{len(bad)} answers differ from the reference, "
                        f"first: {bad[:5]}")
-        check(len(results) >= min(2000, n_queries),
-              "too few queries answered")
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel was not launched by the serving path: {launches}")
-        # FILTER queries ride K1 as filter rows; SEARCH and COUNT take the
-        # batched dense, unbatched dense (COUNT) and batched sparse routes
-        check(forms["dense_and.extra_rows"] > 0,
-              f"no K1 launch carried filter rows: {forms}")
-        for r in ("dense_batched", "dense_unbatched", "sparse_batched"):
+        check(len(results) >= n_queries, "too few queries answered")
+        check(summary["nonzero_answers"] > len(results) // 3,
+              "too few queries matched anything")
+        for k in kernels:
+            check(launches[k] > 0,
+                  f"{k} was not launched by the served queries: {launches}")
+        for r in routes_needed:
             check(routes[r] > 0, f"no query took the {r} route: {routes}")
-        check(avg_batch > 1, f"micro-batcher average batch {avg_batch} <= 1")
+        if not verified:
+            # FILTER queries ride K1 as filter rows
+            check(forms["dense_and.extra_rows"] > 0,
+                  f"no K1 launch carried filter rows: {forms}")
+            check(avg_batch > 1,
+                  f"micro-batcher average batch {avg_batch} <= 1")
+        summary["seconds"] = time.time() - t_phase
+        emit(summary)
         if profile_path:
-            profile_phase(srv.port, ctx, queries, profile_path)
+            profile_phase(srv.port, ctx, queries, profile_path, name)
     finally:
         asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -511,33 +939,31 @@ def query_class(ctx, q: dict) -> str:
     """The query's command and clauses, and the kind of each of its terms:
     "dense" (every gram a bitmap row), "sparse" (a sparse driver with more
     grams to probe), "covered" (one sparse gram: probe-free) or "nogram"."""
-    dense_row = ctx.index.device.dense_row
     kinds = set()
     for t in q["terms"]:
-        tids = [ctx.index.term_dict.get(g) for g in query_grams(ctx, t)]
-        if not tids or None in tids:
-            kinds.add("nogram")
-        elif all(dense_row[x] >= 0 for x in tids):
-            kinds.add("dense")
-        else:
-            kinds.add("covered" if len(tids) == 1 else "sparse")
+        k = term_kind(ctx, t)
+        kinds.add({None: "nogram", "probed": "sparse",
+                   "single": "covered"}.get(k, k))
     return (q["cmd"] + (" NOT" if q.get("not") else "")
             + (" FILTER" if q.get("filter") else "")
             + (" AND" if len(q["terms"]) > 1 else "")
+            + (" SCORE" if q.get("score") else "")
             + " [" + ",".join(sorted(kinds)) + "]")
 
 
-def profile_phase(port: int, ctx, queries, path: str,
+def profile_phase(port: int, ctx, queries, path: str, serve: str,
                   per_class: int = 400) -> None:
     """Each query class with at least 30 queries alone (per_class of them
     at 64 connections, 60 at one), then torch.profiler over 1,500 mixed
-    queries at 64 connections. Prints and writes one JSON line per row."""
+    queries at 64 connections. Prints and appends one JSON line per row
+    to path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     batcher = ctx.index.device.batcher
-    out = open(path, "w")
+    out = open(path, "a")
 
     def put(obj, show=True):
+        obj = {"serve": serve, **obj}
         out.write(json.dumps(obj) + "\n")
         if show:
             emit(obj)
@@ -576,6 +1002,7 @@ def profile_phase(port: int, ctx, queries, path: str,
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
     busy = sum(dev_us(e) for e in events) / 1e6
+
     def calls(match):
         return sum(e.count for e in events if match(e.key))
 
@@ -598,11 +1025,12 @@ def profile_phase(port: int, ctx, queries, path: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--docs", type=int, default=1_100_000)
+    ap.add_argument("--docs", type=int, default=1_100_000,
+                    help="documents of the verified serve (padded layout)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", default="", metavar="PATH",
-                    help="after the serve phase, profile each query class "
-                         "and write the rows to PATH")
+                    help="after the verified and the unverified serve, "
+                         "profile each query class; rows go to PATH")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -620,6 +1048,9 @@ def main(argv=None) -> int:
         return 1
     os.environ["MYGRAM_TORCH_DEVICE"] = "cuda"
     os.environ.setdefault("MYGRAM_ALLOW_ROOT", "1")
+    if args.profile:
+        open(args.profile, "w").close()  # the serves append their rows
+    t_start = time.time()
     try:
         card = card_line()
         emit({"phase": "device", "card": card,
@@ -632,26 +1063,58 @@ def main(argv=None) -> int:
               "ptxas": [ln.strip() for ln in runtime.build_log.splitlines()
                         if "registers" in ln or "Compiling entry" in ln]})
         gen = torch.Generator().manual_seed(args.seed)
+        t0 = time.time()
         timings = kernel_phase(gen)
-        launches, _ = serve_phase(args.docs, args.seed,
-                                  profile_path=args.profile)
+        timings.update(verify_kernel_phase(gen, args.docs))
+        emit({"phase": "kernels", "seconds": time.time() - t0})
+        launches = {}
+        verified_routes = ("fused_dense", "fused_sparse", "verify_exact")
+        got, served = serve_phase(
+            "verified_serve", args.docs, args.seed, 1500, verified=True,
+            profile_path=args.profile,
+            kernels=("dense_and", "slice_gather", "tf_rows_padded"),
+            routes_needed=verified_routes)
+        check(served["maxT"] == TEXT_MAXT,
+              f"the verified serve's maxT is {served['maxT']}: the kernel "
+              f"phase checked K6 at rows of {TEXT_MAXT} + NEEDLE_CAP cells")
+        launches["tf_rows_padded"] = got["tf_rows_padded"]
+        # K6's line: the shape that took most of the served launches
+        whole = served["launch_forms"]["tf_rows_padded.whole_rows"]
+        timings["tf_rows_padded"] = timings[
+            "tf_rows_padded/store" if 2 * whole > got["tf_rows_padded"]
+            else "tf_rows_padded"]
+        got, _ = serve_phase(
+            "flat_verified_serve", FLAT_DOCS, args.seed + 2, 1000,
+            verified=True, layout="flat",
+            kernels=("slice_gather", "tf_rows_flat", "tf_rows_flat_global"),
+            routes_needed=verified_routes)
+        launches["tf_rows_flat"] = got["tf_rows_flat"]
+        launches["tf_rows_flat_global"] = got["tf_rows_flat_global"]
+        got, _ = serve_phase(
+            "plain_serve", PLAIN_DOCS, args.seed, 2400,
+            profile_path=args.profile,
+            kernels=("dense_and", "slice_gather"),
+            routes_needed=("dense_batched", "dense_unbatched",
+                           "sparse_batched"))
+        launches["dense_and"] = got["dense_and"]
+        launches["slice_gather"] = got["slice_gather"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    emit({"phase": "total", "seconds": time.time() - t_start})
     print(card)
-    emit({"kernels": [
-        {"name": "dense_and", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["dense_and"],
-         "max_abs_err": timings["dense_and"]["max_abs_err"],
-         "ms": timings["dense_and"]["ms"],
-         "plain_ms": timings["dense_and"]["plain_ms"]},
-        {"name": "slice_gather", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": launches["slice_gather"],
-         "max_abs_err": timings["slice_gather"]["max_abs_err"],
-         "ms": timings["slice_gather"]["ms"],
-         "plain_ms": timings["slice_gather"]["plain_ms"]}]})
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        t = timings[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": None,
+                     "shape": t["shape"]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

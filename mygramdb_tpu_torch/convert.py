@@ -1,10 +1,12 @@
-"""Carry a JAX ``DeviceIndex``'s state across to the port.
+"""Carry a JAX ``DeviceIndex``'s and ``DeviceTextStore``'s state across to
+the port.
 
 ``state_from_jax(device_index)`` reads the JAX package's device arrays
 into numpy, in the shape ``DeviceIndex.from_state`` takes and
-``DeviceIndex.state()`` returns, so tests can show that both packages
-hold the same data. It touches the JAX arrays only through ``np.asarray``
-and imports no JAX itself.
+``DeviceIndex.state()`` returns; ``text_state_from_jax(store)`` does the
+same for the text store and ``DeviceTextStore.from_state``. Tests use them
+to show that both packages hold, and verify over, the same data. They
+touch the JAX arrays only through ``np.asarray`` and import no JAX.
 """
 
 from __future__ import annotations
@@ -40,3 +42,32 @@ def state_from_jax(device_index) -> dict:
             "ones_row": int(d.ones_row), "zeros_row": int(d.zeros_row),
             "n_words": int(d.n_words),
             "n_docs_capacity": int(d.n_docs_capacity)}
+
+
+def text_state_from_jax(store) -> dict:
+    """A JAX ``DeviceTextStore`` -> the port's store state (see
+    ``storage.device_text.DeviceTextStore.from_state``).
+
+    The JAX layouts carry TPU padding that the port drops: the flat pack's
+    sentinel tail (cut after the last packed cell), the padded matrix's
+    128-cell row rounding (cut to maxT + NEEDLE_CAP columns, which hold
+    every packed document) and the rows past the capacity."""
+    from .ops.verify_ops import NEEDLE_CAP
+    if getattr(store, "doc_sharded", False):
+        raise ValueError("text_state_from_jax: only the single-device "
+                         "layout is supported")
+    cap = int(store.capacity)
+    lengths = np.asarray(store.lengths_host, dtype=np.int32)[:cap]
+    offsets = np.asarray(store.offsets_host, dtype=np.int64)[:cap]
+    cells = np.asarray(store.codepoints)
+    if cells.ndim == 2:
+        cells = cells[:cap, :store.maxT + NEEDLE_CAP]
+    else:
+        end = int((offsets + lengths).max()) if cap else 0
+        cells = cells[:max(end, 1)]
+    return {"capacity": cap, "maxT": int(store.maxT),
+            "dtype": np.dtype(store.dtype).name,
+            "overflow": sorted(int(d) for d in store._overflow),
+            "n_packed": int(store.n_packed),
+            "offsets": offsets.copy(), "lengths": lengths.copy(),
+            "codepoints": np.ascontiguousarray(cells).copy()}

@@ -1,11 +1,7 @@
-from .._overlay import extend_path
-
-__path__ = extend_path(__path__, __name__)
-
-from .term_dict import TermDict  # noqa: E402
-from .builder import IndexBuilder, BuiltIndex  # noqa: E402
-from .device_index import DeviceIndex, SearchOptions  # noqa: E402
-from .delta import DeltaSegment, MutableIndex  # noqa: E402
+from .term_dict import TermDict
+from .builder import IndexBuilder, BuiltIndex
+from .device_index import DeviceIndex, SearchOptions
+from .delta import DeltaSegment, MutableIndex
 
 __all__ = ["TermDict", "IndexBuilder", "BuiltIndex", "DeviceIndex",
            "DeltaSegment", "MutableIndex", "SearchOptions"]

@@ -27,7 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._overlay import not_ported
+from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
 from ..ops.bitmap_ops import bit_member
 from ..ops.posting_ops import (SENTINEL, bitmap_membership, gather_slices,
@@ -56,19 +56,21 @@ def _k_bucket(k: int) -> int:
 
 def _sparse_mask(postings, bitmaps, deleted, extra, d_off, d_len, sp_off,
                  sp_len, sp_inv, dn_rows, dn_inv, *, C: int, Cmax: int,
-                 n_words: int, probe_free: bool):
+                 n_words: int, sparse_probes: bool = True,
+                 dense_probes: bool = True):
     """Candidate-probe mask for B queries -> (cands (B, C), mask (B, C)).
 
     d_off/d_len (B,) int64: the driver slices (K3 gathers the candidates).
     sp_* (B, Ks): sparse probe slices, membership XOR sp_inv (NOT terms;
     a zero-length inverted slot is all-true padding). dn_* (B, Kd): dense
     rows probed by bit, XOR dn_inv. extra (F, W) or None: filter rows.
-    probe_free skips the sparse and dense probes (covered-exact queries)."""
+    Covered-exact queries switch both probes off; the fused verified
+    search may switch off the dense probes alone."""
     B = d_off.shape[0]
     cands = gather_slices(postings, d_off, d_len, C)
     clip = cands.clamp(0, n_words * 32 - 1)
     mask = (cands != SENTINEL) & ~bit_member(deleted, clip)
-    if not probe_free:
+    if sparse_probes:
         Ks = sp_off.shape[1]
         # one gather for all probe slices, probe-major so each is contiguous
         sp = gather_slices(postings, sp_off.t().contiguous().reshape(-1),
@@ -76,6 +78,7 @@ def _sparse_mask(postings, bitmaps, deleted, extra, d_off, d_len, sp_off,
                            ).reshape(Ks, B, Cmax)
         for k in range(Ks):
             mask &= membership_rows(sp[k], cands) ^ sp_inv[:, k, None]
+    if dense_probes:
         for k in range(dn_rows.shape[1]):
             mask &= (bitmap_membership(bitmaps, dn_rows[:, k], clip)
                      ^ dn_inv[:, k, None])
@@ -96,7 +99,8 @@ def _sparse_query_batch(postings, bitmaps, deleted, d_off, d_len,
     cands, mask = _sparse_mask(
         postings, bitmaps, deleted, extra if has_extra else None, d_off,
         d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv, C=C, Cmax=Cmax,
-        n_words=n_words, probe_free=probe_free)
+        n_words=n_words, sparse_probes=not probe_free,
+        dense_probes=not probe_free)
     return mask_to_topn(cands, mask, limit_b, descending)
 
 
@@ -111,7 +115,7 @@ def _sparse_query(postings, bitmaps, deleted, extra, d_off, d_len,
         postings, bitmaps, deleted, extra if has_extra else None,
         d_off.reshape(1), d_len.reshape(1), sp_off[None], sp_len[None],
         sp_inv[None], dn_rows[None], dn_inv[None], C=C, Cmax=Cmax,
-        n_words=n_words, probe_free=False)
+        n_words=n_words)
     count = mask.sum(dtype=torch.int32)
     if limit_b > 0:
         _, ids = mask_to_topn(cands, mask, limit_b, descending)
@@ -388,12 +392,14 @@ class DeviceIndex:
     def _pack_extra(self, extra_words) -> torch.Tensor:
         """Stack extra AND-filter rows (an all-ones row when there are
         none, which is the AND identity). A row of another width was made
-        for another segment: a swap raced the query, and the RuntimeError
-        sends the pipeline to its exact host path."""
+        for another segment: a swap raced the query, and
+        ``FilterRowsRaced`` sends the pipeline to its exact host path."""
         if not extra_words:
             return self._ones_words[None, :]
         if any(w.shape != (self.n_words,) for w in extra_words):
-            raise RuntimeError(
+            # the pipeline's import chain reaches this module
+            from ..query.pipeline import FilterRowsRaced
+            raise FilterRowsRaced(
                 f"filter rows of widths {[tuple(w.shape) for w in extra_words]}"
                 f" for an index of {self.n_words} words")
         return torch.stack(list(extra_words))
@@ -471,6 +477,170 @@ class DeviceIndex:
         return total, cands[mask].cpu().numpy().astype(np.int32)
 
     # ------------------------------------------------------------------
+    # Fused verified search (one program: match + verify + score + top-n)
+    # ------------------------------------------------------------------
+    _KV_BUCKET = 4096  # verify compaction width of the per-slot kernels
+    # candidate widths of the fused path: finer at the short end than
+    # candidate_buckets, since verify work grows with the width
+    _VERIFY_CAND_BUCKETS = (512, 2048, 4096, 8192, 32768, 65536)
+    # a dense driver's least df at 1.1M docs is often 100k-250k
+    _VERIFY_DENSE_BUCKETS = _VERIFY_CAND_BUCKETS + (131072, 262144)
+
+    def verify_cand_bucket(self, n: int) -> int:
+        return _bucket_of(max(n, 1), self._VERIFY_CAND_BUCKETS)
+
+    def verify_maxT(self, text_store, driver_tid: Optional[int]) -> int:
+        """Window bucket of a verify: the longest stored text among the
+        driver term's postings bounds every candidate's length, so the
+        kernels read only that much of each document."""
+        if driver_tid is None:
+            return text_store.maxT
+        p = self.postings_of(driver_tid)
+        if p.size == 0:
+            return text_store.maxT
+        lens_host = text_store.lengths_host
+        ok = p < lens_host.shape[0]
+        bound = int(lens_host[p[ok]].max()) if ok.any() else 0
+        return text_store.maxT_bucket(max(bound, 1))
+
+    def search_and_verified(self, tids: Sequence[int], text_store,
+                            needles: np.ndarray, needle_lens: np.ndarray,
+                            limit_b: int, descending: bool,
+                            score_mode: bool = False, idf=None,
+                            k1: float = 1.2, b: float = 0.75,
+                            avgdl: float = 1.0, nonoverlap: bool = False,
+                            require_match: bool = True,
+                            force_probes: bool = False,
+                            extra_words=()):
+        """One-program verified AND over a ``DeviceTextStore``: (total,
+        ids, scores, pre) with total the VERIFIED match count and pre the
+        gram-AND match count before the verify (the BM25 df of a
+        single-term score query), or None when no fused shape applies or
+        the match set exceeded the verify width (pre > Kv): the caller
+        then re-runs the query on the exact path.
+
+        needles (Nn, CAP) uint32 and needle_lens (Nn,) are padded to the
+        Nn bucket. require_match=False keeps unverified candidates in
+        score mode; force_probes=True keeps the gram probes so that pre is
+        the exact AND count; extra_words are filter rows, which the verify
+        never subsumes."""
+        from ..ops import fused as fused_ops
+        dense_rows, sparse_tids = self.classify(list(tids))
+        idf_row = (np.zeros(needles.shape[0], dtype=np.float32)
+                   if idf is None else np.asarray(idf, dtype=np.float32))
+        empty = (0, np.empty(0, dtype=np.int32),
+                 np.empty(0, dtype=np.float32), 0)
+        extra = self._pack_extra(list(extra_words)) if extra_words else None
+        if sparse_tids:
+            sparse_tids = sorted(sparse_tids,
+                                 key=lambda t: int(self.lengths[t]))
+            driver = sparse_tids[0]
+            dlen = int(self.lengths[driver])
+            if dlen == 0:
+                return empty
+            C = self.verify_cand_bucket(dlen)
+            if C > self.candidate_buckets[-1]:
+                return None
+            Kv = min(C, self._KV_BUCKET)
+            # where the live-prefix kernel (K5) takes the batch, its cost
+            # follows the live candidates: the full width cannot clip
+            if fused_ops._global_pack_policy(text_store, 1, C, nonoverlap):
+                Kv = C
+            maxT = self.verify_maxT(text_store, driver)
+            sp_off = [int(self.dev_offsets[t]) for t in sparse_tids[1:]]
+            sp_len = [int(self.lengths[t]) for t in sparse_tids[1:]]
+            sp_inv = [False] * len(sp_off)
+            Ks = _k_bucket(len(sp_off)) if sp_off else 1
+            Cmax = self._cand_bucket(max([1] + sp_len))
+            while len(sp_off) < Ks:
+                sp_off.append(0)
+                sp_len.append(0)
+                sp_inv.append(True)
+            dn_rows = list(dense_rows)
+            Kd = _k_bucket(len(dn_rows)) if dn_rows else 1
+            dn_inv = [False] * len(dn_rows)
+            while len(dn_rows) < Kd:
+                dn_rows.append(self.ones_row)
+                dn_inv.append(False)
+            lb = min(limit_b, Kv)
+            runtime.count_route("fused_sparse")
+            # the window verify subsumes the dense-gram probes (the
+            # needles hold every query term), unless pre must be exact
+            if self.batcher is not None:
+                out = self.batcher.submit_fused_sparse_verify(
+                    int(self.dev_offsets[driver]), dlen, sp_off, sp_len,
+                    sp_inv, dn_rows, dn_inv, needles, needle_lens,
+                    text_store, C, Cmax, lb, descending, Kv=Kv, maxT=maxT,
+                    score_mode=score_mode, idf=idf_row, k1=k1, b=b,
+                    avgdl=avgdl, nonoverlap=nonoverlap,
+                    require_match=require_match, force_probes=force_probes,
+                    extra=tuple(extra_words))
+                return self._fused_result(out)
+            out = fused_ops.sparse_search_verify_topn_batch(
+                self.postings, self.bitmaps, self.deleted,
+                [int(self.dev_offsets[driver])], [dlen], [sp_off], [sp_len],
+                [sp_inv], [dn_rows], [dn_inv], text_store, C, Cmax, lb,
+                needles[None], needle_lens[None], self.n_words, descending,
+                Kv=Kv, maxT=maxT, idf=idf_row[None], k1=k1, b=b,
+                avgdl=avgdl, score_mode=score_mode, nonoverlap=nonoverlap,
+                use_dense_probes=force_probes, require_match=require_match,
+                extra=extra)
+            return self._fused_result(self._unbatched(out, Kv, score_mode))
+        # dense only: the least dense df bounds the match count
+        if not dense_rows:
+            return empty
+        dfs = [int(self.lengths[t]) for t in tids]
+        C = _bucket_of(max(min(dfs), 1), self._VERIFY_DENSE_BUCKETS)
+        if C > self._VERIFY_DENSE_BUCKETS[-1]:
+            return None
+        # past the widest sparse bucket only the live-prefix kernel keeps
+        # the verify work bounded by the matches
+        if C > self.candidate_buckets[-1] and not \
+                fused_ops._global_pack_policy(text_store, 1, C, nonoverlap):
+            return None
+        rows = list(dense_rows)
+        while len(rows) < _k_bucket(len(rows)):
+            rows.append(self.ones_row)
+        from ..server.microbatch import MAX_K
+        if len(rows) > MAX_K:
+            return None
+        lb = min(limit_b, C)
+        vbound = max(min(dfs), 1)  # AND count <= least df
+        runtime.count_route("fused_dense")
+        if self.batcher is not None:
+            out = self.batcher.submit_fused_verify(
+                rows, needles, needle_lens, text_store, C, lb, descending,
+                score_mode=score_mode, idf=idf_row, k1=k1, b=b,
+                avgdl=avgdl, nonoverlap=nonoverlap,
+                require_match=require_match, extra=tuple(extra_words),
+                vbound=vbound)
+            return self._fused_result(out)
+        out = fused_ops.search_verify_topn_batch(
+            self.bitmaps, self._tensor([rows], torch.int32), self.deleted,
+            extra, text_store, C, lb, needles[None], needle_lens[None],
+            descending, idf=idf_row[None], k1=k1, b=b, avgdl=avgdl,
+            score_mode=score_mode, nonoverlap=nonoverlap,
+            require_match=require_match, vbound=vbound)
+        return self._fused_result(self._unbatched(out, C, score_mode))
+
+    @staticmethod
+    def _unbatched(out, width: int, score_mode: bool):
+        """One query's row of a fused program's numpy output -> (total,
+        ids, scores, pre), or None when it clipped (pre > width)."""
+        pre, count, ids = out[0], out[1], out[2]
+        if int(pre[0]) > width:
+            return None
+        scores = (out[3][0] if score_mode
+                  else np.zeros(ids.shape[1], dtype=np.float32))
+        return int(count[0]), ids[0], scores, int(pre[0])
+
+    @staticmethod
+    def _fused_result(out):
+        if out is None:  # the exact path re-runs the query
+            runtime.count_route("fused_clipped")
+        return out
+
+    # ------------------------------------------------------------------
     @staticmethod
     def _probe_words(words: np.ndarray, ids: np.ndarray) -> np.ndarray:
         w = ids >> 5
@@ -528,8 +698,6 @@ class DeviceIndex:
                                 "11")
     search_by_threshold = not_ported(
         __name__, "DeviceIndex.search_by_threshold", "10")
-    search_and_verified = not_ported(
-        __name__, "DeviceIndex.search_and_verified", "9")
     plan_positional = not_ported(__name__, "DeviceIndex.plan_positional",
                                  "14")
     search_verified_positional = not_ported(

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._overlay import not_ported
+from .._not_ported import not_ported
 from . import runtime
 
 U32_ONES = 0xFFFFFFFF

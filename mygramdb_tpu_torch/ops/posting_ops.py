@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .._overlay import not_ported
+from .._not_ported import not_ported
 from . import runtime
 from .bitmap_ops import _select_first_k
 

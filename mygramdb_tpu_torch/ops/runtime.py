@@ -7,12 +7,15 @@
   ops layer, bumped at the same call sites as in the JAX package.
 - ``launches``: one plain integer per hand-written kernel, bumped by its
   wrapper where it launches the kernel and nowhere else; ``launch_forms``
-  counts the K1 launches that carry NOT rows or filter rows; ``routes``
-  counts the queries each device route of the index served.
+  counts the K1 launches that carry NOT rows or filter rows, the
+  window-TF launches in non-overlapping mode and the K6 launches that
+  read whole matrix rows (the text store's calls); ``routes`` counts the
+  queries each device route of the index served.
 - ``kernel_error``: what a wrapper raises when its kernel refuses its
   inputs or fails to launch (see ``errors.py``).
-- ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into a
-  plain-C shared library (keyed by a hash of the sources) and loads it with
+- ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
+  compiler process per source, all started together) into a plain-C
+  shared library, keyed by a hash of the sources, and loads it with
   ctypes. ``DeviceIndex`` calls it when built on CUDA, so a failed build
   fails table construction, not a query.
 """
@@ -35,7 +38,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+NVCC_LINK_FLAGS = ["-shared", "-gencode", "arch=compute_90a,code=sm_90a"]
 
 
 def device() -> torch.device:
@@ -78,13 +82,22 @@ class _DispatchCounter:
 dispatches = _DispatchCounter()
 
 # kernel name -> launches; reset by callers that measure a window
-launches: Dict[str, int] = {"dense_and": 0, "slice_gather": 0}
-# K1 launches by the optional inputs they carried
+launches: Dict[str, int] = {"dense_and": 0, "slice_gather": 0,
+                            "tf_rows_flat": 0, "tf_rows_flat_global": 0,
+                            "tf_rows_padded": 0}
+# launches by the optional inputs or modes they carried
 launch_forms: Dict[str, int] = {"dense_and.not_rows": 0,
-                                "dense_and.extra_rows": 0}
-# device route -> queries it served (bumped where the route runs)
+                                "dense_and.extra_rows": 0,
+                                "tf_rows.nonoverlap": 0,
+                                "tf_rows_padded.whole_rows": 0}
+# device route -> queries it served (bumped where the route runs):
+# fused_dense / fused_sparse are the fused verified programs, fused_clipped
+# the queries they handed back to the exact path (pre > Kv), verify_exact
+# the text-store calls (verify, contains, TF, BM25 top-n) of that path
 routes: Dict[str, int] = {"dense_batched": 0, "dense_unbatched": 0,
-                          "sparse_batched": 0, "sparse_unbatched": 0}
+                          "sparse_batched": 0, "sparse_unbatched": 0,
+                          "fused_dense": 0, "fused_sparse": 0,
+                          "fused_clipped": 0, "verify_exact": 0}
 _launch_lock = threading.Lock()  # batches flush on many worker threads
 
 
@@ -130,6 +143,8 @@ def _sources():
 
 
 def _build() -> Path:
+    """Compile each source with its own nvcc, all started together, then
+    link them into one shared library (skipped when it exists)."""
     global build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -140,12 +155,29 @@ def _build() -> Path:
     lib = BUILD_DIR / f"libmygram_torch_{h.hexdigest()[:16]}.so"
     if lib.is_file():
         return lib
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [(s.name, p.returncode) for s, p in zip(srcs, procs)
+              if p.returncode != 0]
+    tmp = BUILD_DIR / f".{lib.name}.{tag}.tmp"
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n{build_log}")
     os.replace(tmp, lib)
     return lib
 
@@ -157,6 +189,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mygram_dense_and.restype = i32
     lib.mygram_slice_gather.argtypes = [p, i64, p, p, i32, i32, p, p]
     lib.mygram_slice_gather.restype = i32
+    lib.mygram_tf_rows.argtypes = [p, i32, i64, p, p, p, p, p, p,
+                                   i32, i32, i32, i32, i32, i32, i32, i32,
+                                   i32, p, p]
+    lib.mygram_tf_rows.restype = i32
     lib.mygram_error_string.argtypes = [i32]
     lib.mygram_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,7 +2,7 @@
 programs): ROADMAP Queue 1, item 13. Every name raises
 NotImplementedError."""
 
-from .._overlay import not_ported, placeholder_getattr
+from .._not_ported import not_ported, placeholder_getattr
 
 make_mesh = not_ported(__name__, "make_mesh", "13")
 shard_index_arrays = not_ported(__name__, "shard_index_arrays", "13")

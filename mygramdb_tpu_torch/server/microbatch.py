@@ -1,8 +1,8 @@
-"""Query micro-batching on torch: many connections, one device program.
+"""Query micro-batching: one device program for many connections.
 
-The queueing, grouping and flush logic is the JAX package's
-``MicroBatcher`` (its module imports no JAX at the top level); this
-subclass replaces the two programs the SEARCH/COUNT path runs:
+Concurrent queries are collected for up to ``window_us`` (or until
+``max_batch``) and executed as one batched device program, on the worker
+thread of whichever waiter flushes the queue. Program families:
 
 - **dense**: PK-sorted dense AND SEARCH -> ``dense_search_topn_packed``
   (the row-AND kernel K1 + top-n), grouped per (limit bucket, direction,
@@ -10,28 +10,254 @@ subclass replaces the two programs the SEARCH/COUNT path runs:
 - **sparse**: candidate-probe queries -> ``_sparse_query_batch`` (the
   slice-gather kernel K3 + probes + top-n), grouped per shape bucket and
   probe-free flag.
+- **fusedv** / **fusedsv**: the fused verified search with a dense or a
+  sparse driver (``ops.fused``: K1 or K3, then the window-TF kernels K4,
+  K5 or K6), grouped per shape, needle bucket, scoring parameters and
+  filter rows.
 
-PyTorch runs eagerly, so a batch is not padded to a bucketed width: the
-JAX package pads B and K only to bound its set of compiled programs.
+PyTorch runs eagerly, so a batch is not padded to a bucketed width (the
+JAX package pads B and K only to bound its set of compiled programs, and
+its pad lanes use the all-zeros row so that they match nothing); only a
+query's own rows are padded, with the all-ones AND identity. The kernels
+hold no per-batch text workspace, so a fused batch is not cut into
+chunks either.
 """
 
 from __future__ import annotations
 
-from typing import List
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from mygramdb_tpu.server.microbatch import MAX_K, MicroBatcher as _Batcher
-
-from .._overlay import not_ported
+from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
 
-__all__ = ["MAX_K", "MicroBatcher"]
+MAX_K = 32  # dense row bucket ceiling for batched queries
 
 
-class MicroBatcher(_Batcher):
+@dataclass
+class _Request:
+    rows: List[int]
+    event: threading.Event = field(default_factory=threading.Event)
+    total: int = 0
+    ids: Optional[np.ndarray] = None
+    error: Optional[BaseException] = None
+    # sparse payload (None for dense requests)
+    sparse: Optional[dict] = None
+    scores: Optional[np.ndarray] = None
+    # fused-verify: the match set exceeded the verify compaction width, so
+    # this request's result is invalid — caller re-runs on the exact path
+    clipped: bool = False
+    # fused-verify: pre-verify gram-AND match count (BM25 term df source)
+    pre: int = 0
 
-    def _execute_dense(self, q: List, limit_b: int,
+
+class MicroBatcher:
+    def __init__(self, device_index, max_batch: int = 64,
+                 window_us: int = 200):
+        self.idx = device_index
+        self.max_batch = max(1, max_batch)
+        self.window = window_us / 1e6
+        self._lock = threading.Lock()
+        self._queues: Dict[tuple, List[_Request]] = {}
+        self.batches_executed = 0
+        self.queries_batched = 0
+        self.sparse_batches = 0
+
+    # ------------------------------------------------------------------
+    def _enqueue(self, key: tuple, req: _Request) -> None:
+        """Requester-driven batching: the queue collects for up to the
+        window; the first waiter whose window expires (or the arrival
+        that fills max_batch) executes the whole batch on ITS OWN worker
+        thread. _flush is idempotent, so concurrent waiters flushing is
+        safe."""
+        flush_now = False
+        with self._lock:
+            q = self._queues.setdefault(key, [])
+            q.append(req)
+            if len(q) >= self.max_batch:
+                flush_now = True
+        if flush_now:
+            self._flush(key)
+        # generous overall bound: a first kernel build runs inside the
+        # flusher
+        deadline = time.monotonic() + 600
+        waited = max(self.window, 0.0005)
+        while not req.event.wait(timeout=waited):
+            if time.monotonic() >= deadline:
+                break
+            self._flush(key)
+            waited = 5.0
+        if req.error is not None:
+            raise req.error
+        if req.ids is None:
+            raise TimeoutError("micro-batch execution timed out")
+
+    def submit(self, dense_rows: List[int], limit_b: int,
+               descending: bool, extra=()) -> Tuple[int, np.ndarray]:
+        """Blocking submit; returns (total, top ids desc/asc, -1 padded).
+        extra: tuple of device word rows AND'ed into the result — queries
+        batch with peers sharing the SAME filter rows (grouped by array
+        identity, e.g. every concurrent 'FILTER status = 1')."""
+        if len(dense_rows) > MAX_K:
+            # dropping rows would drop AND constraints (false positives);
+            # callers must route >MAX_K queries to the unbatched path
+            raise ValueError(
+                f"micro-batch supports at most {MAX_K} dense rows, "
+                f"got {len(dense_rows)}")
+        req = _Request(rows=list(dense_rows), sparse={"extra": extra})
+        self._enqueue(("dense", limit_b, descending,
+                       tuple(id(x) for x in extra)), req)
+        return req.total, req.ids
+
+    def submit_fused_verify(self, dense_rows: List[int], needles,
+                            needle_lens, text_store, C: int, limit_b: int,
+                            descending: bool, score_mode: bool = False,
+                            idf=None, k1: float = 1.2, b: float = 0.75,
+                            avgdl: float = 1.0, nonoverlap: bool = False,
+                            require_match: bool = True, extra=(),
+                            vbound=None):
+        """Blocking submit of a fused verified search (PK order or BM25
+        score order). needles: (Nn, CAP) uint32 already padded to the Nn
+        bucket. extra: shared EQ-filter word rows (grouped by identity —
+        queries with the same filter value batch together). Returns
+        (total, ids, scores, pre) or None when the match set exceeded the
+        extraction width (caller re-runs exact)."""
+        if len(dense_rows) > MAX_K:
+            raise ValueError(
+                f"micro-batch supports at most {MAX_K} dense rows")
+        req = _Request(rows=list(dense_rows), sparse={
+            "needles": needles, "nlens": needle_lens, "store": text_store,
+            "idf": idf, "extra": extra,
+            "vbound": C if vbound is None else int(vbound)})
+        key = ("fusedv", id(text_store), C, needles.shape[0],
+               limit_b, descending, score_mode, nonoverlap,
+               round(k1, 6), round(b, 6), round(avgdl, 3), require_match,
+               tuple(id(x) for x in extra))
+        self._enqueue(key, req)
+        if req.clipped:
+            return None
+        return req.total, req.ids, req.scores, req.pre
+
+    def submit_fused_sparse_verify(self, d_off: int, d_len: int,
+                                   sp_off, sp_len, sp_inv, dn_rows, dn_inv,
+                                   needles, needle_lens, text_store,
+                                   C: int, Cmax: int, limit_b: int,
+                                   descending: bool, Kv: int = 0,
+                                   maxT: int = 0, score_mode: bool = False,
+                                   idf=None, k1: float = 1.2,
+                                   b: float = 0.75, avgdl: float = 1.0,
+                                   nonoverlap: bool = False,
+                                   require_match: bool = True,
+                                   force_probes: bool = False,
+                                   extra=()):
+        """Blocking submit of a sparse-driver fused verified search.
+        extra: shared EQ-filter word rows (grouped by identity). Returns
+        (total, ids, scores, pre) or None when the match set exceeded
+        the verify compaction width Kv (caller re-runs exact)."""
+        req = _Request(rows=[], sparse={
+            "d_off": d_off, "d_len": d_len, "sp_off": sp_off,
+            "sp_len": sp_len, "sp_inv": sp_inv, "dn_rows": dn_rows,
+            "dn_inv": dn_inv, "needles": needles, "nlens": needle_lens,
+            "store": text_store, "idf": idf, "extra": extra})
+        Kv = Kv or min(C, 4096)
+        maxT = maxT or text_store.maxT
+        key = ("fusedsv", id(text_store), C, Cmax, len(sp_off),
+               len(dn_rows), needles.shape[0], limit_b, descending,
+               Kv, maxT, score_mode, nonoverlap,
+               round(k1, 6), round(b, 6), round(avgdl, 3),
+               require_match, force_probes,
+               tuple(id(x) for x in extra))
+        self._enqueue(key, req)
+        if req.clipped:
+            return None
+        return req.total, req.ids, req.scores, req.pre
+
+    def submit_positional(self, plan: dict, n: int, descending: bool,
+                          score_mode: bool = False, idf: float = 0.0,
+                          k1: float = 1.2, b: float = 0.75,
+                          avgdl: float = 1.0, require_match: bool = True,
+                          use_doc_probes: bool = False, extra=()):
+        """Blocking submit of a positional verified search. Queries batch
+        with peers sharing the plan's shape-bucket tuple and filter
+        identity. Returns (total, ids, scores, pre) — never clips."""
+        req = _Request(rows=[], sparse={"plan": plan, "idf": idf,
+                                        "extra": extra})
+        key = ("pos", plan["C"], plan["Co"], plan["C2"], plan["Co2"],
+               plan["G"], n, descending, score_mode, require_match,
+               use_doc_probes, round(k1, 6), round(b, 6),
+               round(avgdl, 3), tuple(id(x) for x in extra))
+        self._enqueue(key, req)
+        return req.total, req.ids, req.scores, req.pre
+
+    def submit_sparse(self, d_off: int, d_len: int,
+                      sp_off: List[int], sp_len: List[int],
+                      sp_inv: List[bool],
+                      dn_rows: List[int], dn_inv: List[bool],
+                      C: int, Cmax: int, limit_b: int,
+                      descending: bool, extra=()) -> Tuple[int, np.ndarray]:
+        """Blocking submit of a sparse candidate-probe query. Probe arrays
+        must already be padded to their Ks/Kd buckets by the caller.
+        extra: shared AND-filter rows (grouped by identity, see submit)."""
+        req = _Request(rows=[], sparse={
+            "d_off": d_off, "d_len": d_len, "sp_off": sp_off,
+            "sp_len": sp_len, "sp_inv": sp_inv, "dn_rows": dn_rows,
+            "dn_inv": dn_inv, "extra": extra})
+        # covered-exact shape: nothing to probe — batch with peers on the
+        # probe-free program (the no-op probe stages cost real gathers)
+        probe_free = (all(not l for l in sp_len)
+                      and all(r == self.idx.ones_row and not i
+                              for r, i in zip(dn_rows, dn_inv)))
+        key = ("sparse", C, Cmax, len(sp_off), len(dn_rows),
+               limit_b, descending, probe_free,
+               tuple(id(x) for x in extra))
+        self._enqueue(key, req)
+        return req.total, req.ids
+
+    # ------------------------------------------------------------------
+    def _flush(self, key: tuple) -> None:
+        with self._lock:
+            q = self._queues.pop(key, [])
+        if not q:
+            return
+        try:
+            if key[0] == "dense":
+                self._execute_dense(q, key[1], key[2])
+            elif key[0] == "fusedv":
+                self._execute_fused_verify(q, key)
+            elif key[0] == "fusedsv":
+                self._execute_fused_sparse_verify(q, key)
+            elif key[0] == "pos":
+                self._execute_positional(q, key)
+            else:
+                self._execute_sparse(q, key)
+        except BaseException as e:  # noqa: BLE001 — propagate to waiters
+            for r in q:
+                r.error = e
+                r.event.set()
+
+    def _extra(self, q: List[_Request]):
+        """The batch's filter rows (identical across it: grouped by
+        identity in the queue key) stacked on the device, or None."""
+        rows = list((q[0].sparse or {}).get("extra", ()))
+        return self.idx._pack_extra(rows) if rows else None
+
+    def _finish(self, q: List[_Request], pre, count, ids, scores,
+                width: int) -> None:
+        self.batches_executed += 1
+        self.queries_batched += len(q)
+        for i, r in enumerate(q):
+            r.clipped = int(pre[i]) > width
+            r.pre = int(pre[i])
+            r.total = int(count[i])
+            r.ids = ids[i]
+            r.scores = scores[i] if scores is not None else None
+            r.event.set()
+
+    def _execute_dense(self, q: List[_Request], limit_b: int,
                        descending: bool) -> None:
         idx = self.idx
         K = max(len(r.rows) for r in q)
@@ -39,13 +265,12 @@ class MicroBatcher(_Batcher):
         for i, r in enumerate(q):
             rows[i, :len(r.rows)] = r.rows
         nrows = np.full((len(q), 1), idx.zeros_row, dtype=np.int32)
-        # filter rows are identical across the batch (grouped by identity)
-        extra_rows = list((q[0].sparse or {}).get("extra", ()))
+        extra = self._extra(q)
         count_np, ids_np = bitmap_ops.dense_search_topn_packed(
             idx.bitmaps, runtime.to_device(rows, idx._device),
             runtime.to_device(nrows, idx._device), idx.deleted,
-            idx._pack_extra(extra_rows), False, bool(extra_rows), limit_b,
-            descending)
+            idx._pack_extra([]) if extra is None else extra, False,
+            extra is not None, limit_b, descending)
         self.batches_executed += 1
         self.queries_batched += len(q)
         runtime.count_route("dense_batched", len(q))
@@ -54,7 +279,83 @@ class MicroBatcher(_Batcher):
             r.ids = ids_np[i]
             r.event.set()
 
-    def _execute_sparse(self, q: List, key: tuple) -> None:
+    def _execute_fused_verify(self, q: List[_Request], key: tuple) -> None:
+        from ..ops import fused as fused_ops
+        from ..ops.verify_ops import NEEDLE_CAP
+        idx = self.idx
+        (_, _sid, C, Nn, limit_b, descending, score_mode, nonoverlap,
+         k1, b_, avgdl, require_match, _extra_ids) = key
+        store = q[0].sparse["store"]
+        B = len(q)
+        K = 8 if max(len(r.rows) for r in q) <= 8 else MAX_K
+        rows = np.full((B, K), idx.ones_row, dtype=np.int32)
+        ndl = np.zeros((B, Nn, NEEDLE_CAP), dtype=np.uint32)
+        nlens = np.zeros((B, Nn), dtype=np.int32)
+        idf = np.zeros((B, Nn), dtype=np.float32)
+        for i, r in enumerate(q):
+            rows[i, :len(r.rows)] = r.rows
+            ndl[i] = r.sparse["needles"]
+            nlens[i] = r.sparse["nlens"]
+            if r.sparse.get("idf") is not None:
+                idf[i] = r.sparse["idf"]
+        out = fused_ops.search_verify_topn_batch(
+            idx.bitmaps, runtime.to_device(rows, idx._device), idx.deleted,
+            self._extra(q), store, C, limit_b, ndl, nlens,
+            descending=descending, idf=idf, k1=k1, b=b_, avgdl=avgdl,
+            score_mode=score_mode, nonoverlap=nonoverlap,
+            require_match=require_match,
+            vbound=sum(r.sparse.get("vbound", C) for r in q))
+        self._finish(q, out[0], out[1], out[2],
+                     out[3] if score_mode else None, C)
+
+    def _execute_fused_sparse_verify(self, q: List[_Request],
+                                     key: tuple) -> None:
+        from ..ops import fused as fused_ops
+        from ..ops.verify_ops import NEEDLE_CAP
+        idx = self.idx
+        (_, _sid, C, Cmax, Ks, Kd, Nn, limit_b, descending, Kv, maxT,
+         score_mode, nonoverlap, k1, b_, avgdl, require_match,
+         force_probes, _extra_ids) = key
+        store = q[0].sparse["store"]
+        B = len(q)
+        d_off = np.zeros(B, dtype=np.int64)
+        d_len = np.zeros(B, dtype=np.int64)
+        sp_off = np.zeros((B, Ks), dtype=np.int64)
+        sp_len = np.zeros((B, Ks), dtype=np.int64)
+        sp_inv = np.ones((B, Ks), dtype=bool)
+        dn_rows = np.full((B, Kd), idx.ones_row, dtype=np.int32)
+        dn_inv = np.zeros((B, Kd), dtype=bool)
+        ndl = np.zeros((B, Nn, NEEDLE_CAP), dtype=np.uint32)
+        nlens = np.zeros((B, Nn), dtype=np.int32)
+        idf = np.zeros((B, Nn), dtype=np.float32)
+        for i, r in enumerate(q):
+            s = r.sparse
+            d_off[i] = s["d_off"]
+            d_len[i] = s["d_len"]
+            sp_off[i] = s["sp_off"]
+            sp_len[i] = s["sp_len"]
+            sp_inv[i] = s["sp_inv"]
+            dn_rows[i] = s["dn_rows"]
+            dn_inv[i] = s["dn_inv"]
+            ndl[i] = s["needles"]
+            nlens[i] = s["nlens"]
+            if s.get("idf") is not None:
+                idf[i] = s["idf"]
+        out = fused_ops.sparse_search_verify_topn_batch(
+            idx.postings, idx.bitmaps, idx.deleted,
+            d_off, d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv,
+            store, C, Cmax, limit_b, ndl, nlens, idx.n_words,
+            descending, Kv=Kv, maxT=maxT, idf=idf, k1=k1, b=b_,
+            avgdl=avgdl, score_mode=score_mode, nonoverlap=nonoverlap,
+            # needles cover every gram, so the verify subsumes probes —
+            # unless the caller needs pre = exact AND count (score df)
+            use_dense_probes=force_probes,
+            require_match=require_match, extra=self._extra(q))
+        self.sparse_batches += 1
+        self._finish(q, out[0], out[1], out[2],
+                     out[3] if score_mode else None, Kv)
+
+    def _execute_sparse(self, q: List[_Request], key: tuple) -> None:
         from ..index.device_index import _sparse_query_batch
         idx = self.idx
         _, C, Cmax, Ks, Kd, limit_b, descending, probe_free, _eids = key
@@ -76,16 +377,17 @@ class MicroBatcher(_Batcher):
             dn_rows[i] = s["dn_rows"]
             dn_inv[i] = s["dn_inv"]
         runtime.dispatches.bump()
-        extra_rows = list((q[0].sparse or {}).get("extra", ()))
+        extra = self._extra(q)
         dev = idx._device
         count, ids = _sparse_query_batch(
             idx.postings, idx.bitmaps, idx.deleted,
             runtime.to_device(d_off, dev), runtime.to_device(d_len, dev),
             runtime.to_device(sp_off, dev), runtime.to_device(sp_len, dev),
             runtime.to_device(sp_inv, dev), runtime.to_device(dn_rows, dev),
-            runtime.to_device(dn_inv, dev), idx._pack_extra(extra_rows),
+            runtime.to_device(dn_inv, dev),
+            idx._pack_extra([]) if extra is None else extra,
             C=C, Cmax=Cmax, limit_b=limit_b, descending=descending,
-            n_words=idx.n_words, has_extra=bool(extra_rows),
+            n_words=idx.n_words, has_extra=extra is not None,
             probe_free=probe_free)
         count_np = count.cpu().numpy()
         ids_np = ids.cpu().numpy()
@@ -98,11 +400,14 @@ class MicroBatcher(_Batcher):
             r.ids = ids_np[i]
             r.event.set()
 
-    # fused verify and positional programs: not ported yet
-    _execute_fused_verify = not_ported(
-        __name__, "MicroBatcher._execute_fused_verify", "9")
-    _execute_fused_sparse_verify = not_ported(
-        __name__, "MicroBatcher._execute_fused_sparse_verify", "9")
+    # the positional engine's device program is not ported yet
     _execute_positional = not_ported(
         __name__, "MicroBatcher._execute_positional", "14")
 
+    # ------------------------------------------------------------------
+    def stats(self) -> Dict[str, int]:
+        return {"batches_executed": self.batches_executed,
+                "queries_batched": self.queries_batched,
+                "sparse_batches": self.sparse_batches,
+                "avg_batch": (self.queries_batched //
+                              max(self.batches_executed, 1))}

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from mygramdb_tpu_torch.ops import bitmap_ops, posting_ops, runtime
+from mygramdb_tpu_torch.ops import (bitmap_ops, posting_ops, runtime,
+                                    verify_ops)
 from mygramdb_tpu_torch.ops.errors import KernelError
 
 from torch_parity import require_cuda
@@ -146,3 +147,214 @@ def test_device_index_on_cuda_matches_cpu():
             a = gpu.search_and(tids, nots, None, SearchOptions(**opts))
             c = cpu.search_and(tids, nots, None, SearchOptions(**opts))
             assert a[0] == c[0] and np.array_equal(a[1], c[1]), (tids, nots)
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: the window-TF kernel family (csrc/verify_tf.cu)
+# ---------------------------------------------------------------------------
+
+def text_pack(u32: bool, N=3000, maxT=300, seed=0):
+    """A random pack over a small alphabet (so needles match often):
+    (flat cells numpy, offsets int64, lengths int32). A u32 pack mixes in
+    non-BMP code points."""
+    g = np.random.default_rng(seed)
+    lens = g.integers(0, maxT + 1, N).astype(np.int32)
+    lens[::17] = 0
+    alphabet = np.asarray([0x4E00, 0x4E01, 0x3042, 0x3043, 0x61, 0x62]
+                          + ([0x1F600, 0x1F601] if u32 else []))
+    flat = alphabet[g.integers(0, alphabet.size, int(lens.sum()))]
+    offs = np.zeros(N, dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    return flat.astype(np.uint32 if u32 else np.uint16), offs, lens
+
+
+def needle_table(flat, offs, lens, B, Nn, cap, clamp_cell, seed=1):
+    """(B, Nn, CAP) needles cut from the pack, lengths 0..cap (one empty
+    needle per query), and for u16 packs one needle holding a code point
+    that clamps to the sentinel."""
+    g = np.random.default_rng(seed)
+    ndl = np.zeros((B, Nn, verify_ops.NEEDLE_CAP), dtype=np.uint32)
+    nlen = np.zeros((B, Nn), dtype=np.int32)
+    docs = np.flatnonzero(lens >= cap)
+    for b in range(B):
+        for j in range(Nn):
+            L = int(g.integers(1, cap + 1)) if (b + j) % 5 else 0
+            d = int(docs[g.integers(docs.size)])
+            p = int(offs[d] + g.integers(0, lens[d] - L + 1))
+            ndl[b, j, :L] = flat[p:p + L]
+            nlen[b, j] = L
+    if clamp_cell:
+        ndl[0, 0, 0], nlen[0, 0] = 0x1F600, max(nlen[0, 0], 1)
+    return ndl, nlen
+
+
+@pytest.mark.parametrize("kernel", ["flat", "flat_global", "padded"])
+@pytest.mark.parametrize("u32", [False, True])
+@pytest.mark.parametrize("nonoverlap", [False, True])
+@pytest.mark.parametrize("use_range", [False, True])
+@pytest.mark.parametrize("cap,Nn", [(4, 2), (32, 4)])
+def test_tf_rows_match_plain(kernel, u32, nonoverlap, use_range, cap, Nn):
+    require_cuda()
+    maxT, B, Kv = 300, 6, 200
+    flat, offs, lens = text_pack(u32, maxT=maxT)
+    ndl, nlen = needle_table(flat, offs, lens, B, Nn, cap,
+                             clamp_cell=use_range and not u32)
+    dt = np.uint32 if u32 else np.uint16
+    dev = torch.device("cuda")
+    g = np.random.default_rng(2)
+    ids = g.integers(0, lens.size, B * Kv)
+    alive = g.random(B * Kv) < 0.8
+    row_lens = np.where(alive, lens[ids], 0).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ndl_t = t(verify_ops.cast_needles_i32(ndl, dt, cap))
+    nlen_t = t(nlen)
+    cells = flat.view(np.int32 if u32 else np.int16)
+    kw = dict(cap=cap, use_range=use_range, nonoverlap=nonoverlap)
+    if kernel == "padded":
+        from mygramdb_tpu_torch.storage.device_text import _pad_on_device
+        rowT = maxT + verify_ops.NEEDLE_CAP
+        sent = -1 if u32 else np.int16(-1)
+        padded = _pad_on_device(t(cells), t(offs), t(lens), rowT, int(sent))
+        args = (padded, t(ids), t(row_lens), ndl_t, nlen_t)
+        kw.update(Kv=Kv, width=maxT + cap)
+        fn, plain = verify_ops.tf_rows_padded, verify_ops._tf_padded_plain
+        name = "tf_rows_padded"
+    elif kernel == "flat":
+        args = (t(cells), t(offs[ids]), t(row_lens), ndl_t, nlen_t)
+        kw.update(Kv=Kv, win=maxT)
+        fn, plain = verify_ops.tf_rows_flat, verify_ops._tf_flat_plain
+        name = "tf_rows_flat"
+    else:
+        owner = t(g.integers(0, B, B * Kv).astype(np.int32))
+        live = t(np.asarray([B * Kv - 137], dtype=np.int32))  # dead suffix
+        args = (t(cells), t(offs[ids]), t(row_lens), owner, live, ndl_t,
+                nlen_t)
+        kw.update(win=maxT)
+        fn = verify_ops.tf_rows_flat_global
+        plain = verify_ops._tf_flat_global_plain
+        name = "tf_rows_flat_global"
+    before = runtime.launches[name]
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert runtime.launches[name] == before + 1
+    assert torch.equal(got, want)
+    assert int(got[:, :Nn].sum()) > 0
+
+
+@pytest.mark.parametrize("u32", [False, True])
+@pytest.mark.parametrize("nonoverlap", [False, True])
+@pytest.mark.parametrize("use_range", [False, True])
+@pytest.mark.parametrize("cap,Nn", [(4, 2), (32, 4)])
+def test_tf_rows_padded_store_call_matches_plain(u32, nonoverlap, use_range,
+                                                 cap, Nn):
+    """K6 as the text store calls it: one needle set over a full chunk of
+    sorted candidate ids, whole rows of a matrix with maxT 1024."""
+    require_cuda()
+    from mygramdb_tpu_torch.storage.device_text import (_C_CHUNK,
+                                                        _pad_on_device)
+    maxT = 1024
+    flat, offs, lens = text_pack(u32, N=_C_CHUNK + 5000, maxT=maxT)
+    ndl, nlen = needle_table(flat, offs, lens, 1, Nn, cap,
+                             clamp_cell=use_range and not u32)
+    dt = np.uint32 if u32 else np.uint16
+    dev = torch.device("cuda")
+    g = np.random.default_rng(3)
+    ids = np.sort(g.choice(lens.size, _C_CHUNK, replace=False))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cells = flat.view(np.int32 if u32 else np.int16)
+    rowT = maxT + verify_ops.NEEDLE_CAP
+    padded = _pad_on_device(t(cells), t(offs), t(lens), rowT,
+                            -1 if u32 else int(np.int16(-1)))
+    args = (padded, t(ids), t(lens[ids]),
+            t(verify_ops.cast_needles_i32(ndl, dt, cap)), t(nlen))
+    kw = dict(Kv=_C_CHUNK, cap=cap, width=rowT, use_range=use_range,
+              nonoverlap=nonoverlap)
+    before = runtime.launch_forms["tf_rows_padded.whole_rows"]
+    got = verify_ops.tf_rows_padded(*args, **kw)
+    want = verify_ops._tf_padded_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert runtime.launch_forms["tf_rows_padded.whole_rows"] == before + 1
+    assert torch.equal(got, want)
+    assert int(got[:, :Nn].sum()) > 0
+
+
+def test_tf_rows_refuse_bad_inputs():
+    require_cuda()
+    dev = torch.device("cuda")
+    cells = torch.zeros(100, dtype=torch.int16, device=dev)
+    starts = torch.zeros(4, dtype=torch.int64, device=dev)
+    lens = torch.ones(4, dtype=torch.int32, device=dev)
+    ndl = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    nlen = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(KernelError):  # int32 starts
+        verify_ops.tf_rows_flat(cells, starts.int(), lens, ndl, nlen, Kv=4,
+                                cap=4, win=8, use_range=False)
+    with pytest.raises(KernelError):  # needle table of another cap
+        verify_ops.tf_rows_flat(cells, starts, lens, ndl, nlen, Kv=4,
+                                cap=8, win=8, use_range=False)
+    with pytest.raises(KernelError, match="shared memory"):
+        verify_ops.tf_rows_flat(cells, starts, lens, ndl, nlen, Kv=4,
+                                cap=4, win=20000, use_range=False)
+
+
+def test_verified_search_on_cuda_matches_cpu():
+    """The fused verified search and the text store on the card against
+    the same index and store on the CPU, both layouts, PK and BM25 order."""
+    require_cuda()
+    from mygramdb_tpu_torch.index.builder import IndexBuilder
+    from mygramdb_tpu_torch.index.device_index import DeviceIndex
+    from mygramdb_tpu_torch.storage.device_text import DeviceTextStore
+    from mygramdb_tpu_torch.utils import textproc
+    rng = np.random.default_rng(3)
+    words = ["".join(rng.choice(list("abcdefgh"), 4)) for _ in range(300)]
+    texts = {d: " ".join(rng.choice(words, int(rng.integers(3, 40))))
+             for d in range(1, 6000)}
+    b = IndexBuilder(2, 1, True)
+    for d, x in texts.items():
+        b.add_document(d, x)
+    built = b.finalize()
+    for layout in ("padded", "flat"):
+        mp = pytest.MonkeyPatch()
+        mp.setenv("MYGRAM_TEXT_LAYOUT", layout)
+        try:
+            pair = []
+            for dev in ("cuda", "cpu"):
+                idx = DeviceIndex(built, dense_df_ratio=0.2, device=dev)
+                st = DeviceTextStore(texts, idx.n_docs_capacity, device=dev)
+                pair.append((idx, st))
+        finally:
+            mp.undo()
+        assert (pair[0][1].codepoints.dim() == 2) == (layout == "padded")
+        for i in range(40):
+            terms = list(rng.choice(words, 1 + i % 2))
+            needles = np.zeros((2, verify_ops.NEEDLE_CAP), dtype=np.uint32)
+            nlens = np.zeros(2, dtype=np.int32)
+            for j, w in enumerate(terms):
+                needles[j, :len(w)] = [ord(c) for c in w]
+                nlens[j] = len(w)
+            tids = sorted({built.term_dict.get(g) for w in terms
+                           for g in textproc.generate_query_ngrams(
+                               w, 2, 1, True)})
+            if None in tids:
+                continue
+            for score in (False, True):
+                res = [idx.search_and_verified(
+                    tids, st, needles, nlens, 100, True, score_mode=score,
+                    idf=np.ones(2, dtype=np.float32), avgdl=60.0)
+                    for idx, st in pair]
+                assert (res[0] is None) == (res[1] is None)
+                if res[0] is None:
+                    continue
+                assert res[0][0] == res[1][0] and res[0][3] == res[1][3]
+                assert np.array_equal(res[0][1], res[1][1]), terms
+                np.testing.assert_allclose(res[0][2], res[1][2], rtol=1e-5)
+            ids = np.asarray(sorted(rng.choice(list(texts), 3000,
+                                               replace=False)), np.int32)
+            fb = lambda xs: [texts.get(x) for x in xs]
+            a, c = (st.verify(ids, terms, fb) for _, st in pair)
+            assert np.array_equal(a, c)
+            (ta, la), (tc, lc) = (st.count_tf(ids, terms, fb)
+                                  for _, st in pair)
+            assert np.array_equal(ta, tc) and np.array_equal(la, lc)
+

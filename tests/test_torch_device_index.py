@@ -163,9 +163,7 @@ def test_paths_not_ported_raise(pair):
     _, _, tdev = pair
     for call in (lambda: tdev.search_or([1]),
                  lambda: tdev.ast_words(("t", 0), [[1]], None),
-                 lambda: tdev.search_by_threshold([1], 1),
-                 lambda: tdev.search_and_verified([1], None, None, None, 1,
-                                                  True)):
+                 lambda: tdev.search_by_threshold([1], 1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -1,0 +1,98 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+A subprocess blocks both (``sys.modules[name] = None`` makes any import of
+them fail), imports every module of ``mygramdb_tpu_torch``, then loads a
+small table with ``memory.verify_text: all`` and serves SEARCH, COUNT and
+``SORT _score`` queries on the CPU. A source scan shows that no file of the
+port has an import naming the JAX package.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mygramdb_tpu_torch"
+
+SCRIPT = r"""
+import json, os, pkgutil, importlib, sys
+sys.modules["jax"] = None
+sys.modules["mygramdb_tpu"] = None
+os.environ["MYGRAM_TORCH_DEVICE"] = "cpu"
+import mygramdb_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    mygramdb_tpu_torch.__path__, "mygramdb_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+from mygramdb_tpu_torch.catalog import TableCatalog
+from mygramdb_tpu_torch.config import load_config_from_dict
+from mygramdb_tpu_torch.server.core import ServerCore
+from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
+cfg = load_config_from_dict({
+    "tables": [{"name": "articles", "text_source": {"column": "content"},
+                "filters": [{"name": "status", "type": "int",
+                             "bitmap_index": True}]}],
+    "cache": {"enabled": False}, "memory": {"verify_text": "all"},
+    "api": {"tcp": {"bind": "127.0.0.1", "port": 0}},
+    "network": {"allow_cidrs": ["127.0.0.0/8"]}})
+cat = TableCatalog(cfg)
+ctx = cat.resolve("articles")
+bulk = ctx.begin_bulk_load()
+gen = CorpusGenerator(1200, seed=4, vocab_size=4000)
+texts = [t for b in gen.batches(400) for _, t in b]
+for batch in gen.batches(400):
+    bulk.add_batch([(str(i), t, {"status": i % 3}) for i, t in batch])
+bulk.finish()
+core = ServerCore(cfg, cat)
+ja = [t[5:8] for t in texts if not t.isascii()][:20]
+lines = [f"SEARCH articles {w} LIMIT 10" for w in gen.vocab[:20]]
+lines += [f"SEARCH articles {t} SORT _score DESC LIMIT 5" for t in ja]
+lines += [f"COUNT articles {w} FILTER status = 1" for w in gen.vocab[:10]]
+out = [core.handle_line(x) for x in lines]
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and (m == "jax" or m.startswith("jax.")
+                     or m == "mygramdb_tpu" or m.startswith("mygramdb_tpu.")))
+print(json.dumps({"modules": len(names), "loaded": loaded,
+                  "responses": out,
+                  "text_store": type(ctx.device_text).__module__}))
+"""
+
+
+def test_port_imports_and_serves_without_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["modules"] > 70
+    assert out["text_store"] == "mygramdb_tpu_torch.storage.device_text"
+    assert all(r.startswith("OK") for r in out["responses"]), out
+    assert sum(r not in ("OK RESULTS 0", "OK COUNT 0")
+               for r in out["responses"]) > 25
+
+
+def imported_names(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_no_port_file_imports_the_jax_package():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 70
+    bad = [(str(f.relative_to(ROOT)), name) for f in files
+           for name in imported_names(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "mygramdb_tpu")]
+    assert bad == []

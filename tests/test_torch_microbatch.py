@@ -107,6 +107,56 @@ def test_over_max_k_takes_unbatched_path(indexes):
 
 
 def test_fused_programs_not_ported(indexes):
+    """Of the batched programs only the positional engine's is still a
+    placeholder; the fused verified programs run (next test)."""
     _, batched, _, _ = indexes
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batched.batcher._execute_fused_verify([], ())
+        batched.batcher._execute_positional([], ())
+
+
+def test_fused_verify_batches_match_unbatched(indexes):
+    """Concurrent verified searches (dense and sparse drivers, PK and BM25
+    order) share fused programs, and each answer equals the same query run
+    alone, and the JAX package's."""
+    from mygramdb_tpu.storage.device_text import DeviceTextStore as JText
+    from mygramdb_tpu.utils.corpusgen import CorpusGenerator
+    from mygramdb_tpu.utils.textproc import generate_query_ngrams
+    from mygramdb_tpu_torch.storage.device_text import DeviceTextStore
+    built, batched, plain, jdev = indexes
+    gen = CorpusGenerator(3000, seed=12, vocab_size=20_000)
+    texts = {i: t.lower() for b in gen.batches(1000) for i, t in b}
+    tst = DeviceTextStore(texts, batched.n_docs_capacity, device="cpu")
+    jst = JText(texts, jdev.n_docs_capacity)
+    words = [w for w in gen.vocab[:400] if len(w) >= 4][:24]
+    qs = []
+    for i, w in enumerate(words):
+        tids = [built.term_dict.get(g) for g in
+                generate_query_ngrams(w, 2, 1, True, kanji_extra=2)]
+        if None in tids:
+            continue
+        ndl, nl = JText._pack_needles([w, ""])
+        qs.append((sorted(set(tids)), ndl, nl, bool(i % 2)))
+    assert len(qs) >= 12
+    idf = np.asarray([1.5, 0.0], dtype=np.float32)
+
+    def ask(idx, st, q):
+        tids, ndl, nl, score = q
+        return idx.search_and_verified(tids, st, ndl, nl, 32, True,
+                                       score_mode=score, idf=idf,
+                                       avgdl=40.0)
+
+    b = batched.batcher
+    before = (b.batches_executed, b.queries_batched)
+    got = run_concurrently(lambda i: ask(batched, tst, qs[i]), len(qs))
+    assert 0 < b.batches_executed - before[0] < b.queries_batched - before[1]
+    for q, g in zip(qs, got):
+        for want in (ask(plain, tst, q), ask(jdev, jst, q)):
+            assert (g is None) == (want is None), q[0]
+            if g is None:
+                continue
+            assert g[0] == want[0] and g[3] == want[3], q[0]
+            assert np.array_equal(g[1], want[1]), q[0]
+            if q[3]:  # scores exist in score mode only
+                np.testing.assert_allclose(np.asarray(g[2], np.float64),
+                                           np.asarray(want[2], np.float64),
+                                           rtol=1e-5)

@@ -1,8 +1,13 @@
 """The whole slice: ``TableCatalog``, ``ServerCore`` and ``TcpServer`` from
 both namespaces on one synthetic corpus. Every SEARCH and COUNT response
 line (dense, sparse, covered CJK, NOT, FILTER, zero-hit) must be
-byte-identical. A subprocess serves the port's slice with JAX blocked and
-shows that neither JAX nor a JAX-package device module was loaded."""
+byte-identical, also with ``memory.verify_text: all`` and ``SORT _score``
+(the fused verified search, the text store's exact-path verify and BM25).
+A kernel failure or another device fault on a filtered query answers
+ERROR; filter rows raced by a segment swap take the exact path. A
+subprocess serves
+the port's slice with JAX blocked and shows that neither JAX nor a
+JAX-package device module was loaded."""
 
 import asyncio
 import json
@@ -12,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mygramdb_tpu.catalog import TableCatalog as JCatalog
 from mygramdb_tpu.config import load_config_from_dict
@@ -19,8 +25,11 @@ from mygramdb_tpu.server.core import ServerCore as JCore
 from mygramdb_tpu.server.tcp_server import TcpServer as JTcp
 from mygramdb_tpu.utils.corpusgen import CorpusGenerator
 from mygramdb_tpu_torch.catalog import TableCatalog as TCatalog
-from mygramdb_tpu_torch.ops import bitmap_ops, posting_ops, runtime
+from mygramdb_tpu_torch.ops import (bitmap_ops, posting_ops, runtime,
+                                    verify_ops)
+from mygramdb_tpu_torch.ops import fused as tfused
 from mygramdb_tpu_torch.server.core import ServerCore as TCore
+from mygramdb_tpu_torch.storage.filter_index import FilterIndex
 from mygramdb_tpu_torch.server.tcp_server import TcpServer as TTcp
 
 from torch_parity import torch_cpu  # noqa: F401
@@ -38,8 +47,8 @@ CFG = {
 N_DOCS = 2500
 
 
-def load(catalog_cls, gen):
-    cfg = load_config_from_dict(CFG)
+def load(catalog_cls, gen, cfg_dict=CFG):
+    cfg = load_config_from_dict(cfg_dict)
     cat = catalog_cls(cfg)
     ctx = cat.resolve("articles")
     bulk = ctx.begin_bulk_load()
@@ -192,6 +201,172 @@ def test_kernel_failure_on_filtered_query_answers_error(slices, monkeypatch,
     resp = core.handle_line(line)
     assert failed and resp.startswith("ERR"), resp
     assert "injected kernel failure" in resp, resp
+
+
+VERIFIED_CFG = dict(CFG, memory={"verify_text": "all"})
+
+
+@pytest.fixture(scope="module")
+def verified_slices(torch_cpu):
+    gen = CorpusGenerator(N_DOCS, seed=78, vocab_size=20_000)
+    jcfg, jcat, jctx = load(JCatalog, gen, VERIFIED_CFG)
+    tcfg, tcat, tctx = load(TCatalog, gen, VERIFIED_CFG)
+    assert tctx.device_text is not None
+    return gen, (jcfg, jcat, jctx), (tcfg, tcat, tctx)
+
+
+def verified_lines(gen, n, seed=5):
+    """CJK substrings of 3-4 characters cut from the corpus, EN words
+    (some self-overlapping), two-term AND, NOT, FILTER, COUNT and
+    SORT _score with one and two terms."""
+    rng = np.random.default_rng(seed)
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    words = [w for w in gen.vocab[:3000] if len(w) >= 3]
+    borders = [w for w in words if verify_ops.has_self_overlap(w)][:40]
+
+    def cjk():
+        d = ja[int(rng.integers(len(ja)))]
+        L = int(rng.integers(3, 5))
+        p = int(rng.integers(0, len(d) - L))
+        return d[p:p + L]
+
+    def word():
+        return words[int(rng.integers(len(words)))]
+
+    shapes = [
+        lambda: f"SEARCH articles {cjk()} SORT id DESC LIMIT 20",
+        lambda: f"SEARCH articles {word()} LIMIT 30",
+        lambda: f"SEARCH articles {word()} AND {cjk()} LIMIT 10",
+        lambda: f"SEARCH articles {cjk()} NOT {word()} LIMIT 10",
+        lambda: f"SEARCH articles {word()} FILTER status = 1 LIMIT 30",
+        lambda: f"COUNT articles {cjk()}",
+        lambda: f"COUNT articles {word()} FILTER status = 2",
+        lambda: f"SEARCH articles {word()} SORT _score DESC LIMIT 10",
+        lambda: f"SEARCH articles {cjk()} SORT _score DESC LIMIT 10",
+        lambda: (f"SEARCH articles {word()} AND {word()} "
+                 f"SORT _score DESC LIMIT 10"),
+        lambda: (f"SEARCH articles "
+                 f"{borders[int(rng.integers(len(borders)))]} "
+                 f"SORT _score DESC LIMIT 10"),
+    ]
+    out = set()
+    while len(out) < n:
+        out.add(shapes[int(rng.integers(len(shapes)))]())
+    return sorted(out)
+
+
+def test_verified_tcp_responses_are_byte_identical(verified_slices):
+    gen, (jcfg, jcat, jctx), (tcfg, tcat, tctx) = verified_slices
+    lines = verified_lines(gen, 160)
+
+    async def ask(port):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        out = []
+        for line in lines:
+            writer.write(line.encode() + b"\r\n")
+            await writer.drain()
+            out.append(await asyncio.wait_for(reader.readline(), 60))
+        writer.close()
+        return out
+
+    async def main():
+        servers = [JTcp(JCore(jcfg, jcat), jcfg), TTcp(TCore(tcfg, tcat),
+                                                       tcfg)]
+        for s in servers:
+            await s.start()
+        try:
+            return await asyncio.gather(*[ask(s.port) for s in servers])
+        finally:
+            for s in servers:
+                await s.stop()
+
+    runtime.reset_launches()
+    jout, tout = asyncio.run(main())
+    for line, j, t in zip(lines, jout, tout):
+        assert t == j, line
+    assert all(r.startswith(b"OK") for r in tout)
+    assert sum(r not in (b"OK RESULTS 0\r\n", b"OK COUNT 0\r\n")
+               for r in tout) > len(lines) // 2
+    assert runtime.routes["fused_dense"] + runtime.routes["fused_sparse"] > 0
+
+
+def test_kernel_failure_on_filtered_verified_query_answers_error(
+        verified_slices, monkeypatch):
+    """A window-TF kernel failure in a FILTER'ed verified query answers
+    ERROR: the fused path re-raises it instead of moving the query to the
+    exact host path."""
+    gen, _, (tcfg, tcat, tctx) = verified_slices
+    core = TCore(tcfg, tcat)
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    line = f"SEARCH articles {ja[0][:3]} FILTER status = {1 % 3} LIMIT 10"
+    runtime.reset_launches()
+    assert core.handle_line(line).startswith("OK")
+    assert runtime.routes["fused_dense"] + runtime.routes["fused_sparse"] \
+        == 1, runtime.routes
+    failed = []
+    plain = verify_ops._tf_rows_plain
+
+    def fail_once(*args, **kw):
+        if not failed:
+            failed.append(1)
+            raise runtime.kernel_error("injected kernel failure")
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(verify_ops, "_tf_rows_plain", fail_once)
+    resp = core.handle_line(line)
+    assert failed and resp.startswith("ERR"), resp
+    assert "injected kernel failure" in resp, resp
+
+
+def test_device_fault_on_filtered_verified_query_answers_error(
+        verified_slices, monkeypatch):
+    """A torch error around the kernels (an out-of-memory in the fused
+    program's tail, say) in a FILTER'ed verified query answers ERROR as
+    well: only filter rows raced by a segment swap send a query to the
+    exact path."""
+    gen, _, (tcfg, tcat, tctx) = verified_slices
+    core = TCore(tcfg, tcat)
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    line = f"SEARCH articles {ja[0][:3]} FILTER status = {1 % 3} LIMIT 10"
+    assert core.handle_line(line).startswith("OK")
+
+    def fault(*args, **kw):
+        raise RuntimeError("injected device fault")
+
+    monkeypatch.setattr(tfused, "_reduce_from_tf", fault)
+    runtime.reset_launches()
+    resp = core.handle_line(line)
+    assert resp.startswith("ERR") and "injected device fault" in resp, resp
+    assert runtime.routes["verify_exact"] == 0, runtime.routes
+
+
+@pytest.mark.parametrize("verified", [False, True])
+def test_raced_filter_rows_take_the_exact_path(request, monkeypatch,
+                                               verified):
+    """Filter rows of another width (made for another segment while a
+    swap raced the query) move a FILTER'ed query to the exact path, which
+    answers as the JAX package does."""
+    gen, (jcfg, jcat, jctx), (tcfg, tcat, tctx) = request.getfixturevalue(
+        "verified_slices" if verified else "slices")
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    words = [w for w in gen.vocab[:200] if len(w) >= 3]
+    lines = [f"SEARCH articles {ja[0][:3]} FILTER status = 1 LIMIT 10",
+             f"SEARCH articles {words[0]} FILTER status = 2 LIMIT 30",
+             f"COUNT articles {words[1]} FILTER status = 1"]
+    jcore, tcore = JCore(jcfg, jcat), TCore(tcfg, tcat)
+    want = [jcore.handle_line(x) for x in lines]
+    eq = FilterIndex.eq_bitmap_device
+    raced = []
+
+    def other_segment(self, *args, **kw):
+        row = eq(self, *args, **kw)
+        raced.append(1)
+        return None if row is None else torch.cat([row, row[:4]])
+
+    monkeypatch.setattr(FilterIndex, "eq_bitmap_device", other_segment)
+    got = [tcore.handle_line(x) for x in lines]
+    assert raced and got == want
+    assert sum(r not in ("OK RESULTS 0", "OK COUNT 0") for r in got) >= 2
 
 
 NO_JAX_SCRIPT = r"""
