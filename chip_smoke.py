@@ -12,12 +12,14 @@ Phases, each printing one JSON line with its seconds:
    the shapes the serving path gives it, exact equality (integer work),
    both timed with CUDA events, beside the least time the card could take
    (bytes over 3.35 TB/s or 32-bit operations over 67 T/s, whichever is
-   larger). K1 row-AND, K3 slice gather; K4 flat-pack, K5 live-prefix and
-   K6 padded-matrix window TF, on u16 and u32 packs, both count modes,
-   with and without the range mask, cap 4 and 32, 2 and 4 needles; K6
-   over a matrix of the verified serve's row width at the fused
-   program's shape and at the text store's own (whole rows of a
-   65,536-candidate chunk).
+   larger). K1 row-AND, K2 row reduce (AND and OR), K3 slice gather; K4
+   flat-pack, K5 live-prefix and K6 padded-matrix window TF, on u16 and
+   u32 packs, both count modes, with and without the range mask, cap 4
+   and 32, 2 and 4 needles; K6 over a matrix of the verified serve's row
+   width at the fused program's shape and at the text store's own (whole
+   rows of a 65,536-candidate chunk); P1 row gather over a matrix of the
+   verified serve's size, also beside ``torch.index_select``. Then the
+   probe ``mygramdb_tpu_torch.tools.profile_gather`` (P1's own path).
 4. verified serve: the server's own entry points (``Application`` with a
    seed file, ``TcpServer``) at --docs documents of the synthetic EN+JA
    corpus with ``memory.verify_text: all`` and the auto text layout (the
@@ -26,8 +28,13 @@ Phases, each printing one JSON line with its seconds:
    and ``SORT _score DESC`` with one and two terms, every answer held
    against an independent reference (gram-AND candidates from the host
    CSR, then Python substring checks over the stored texts; BM25
-   recomputed in numpy with ``str.count``); then rows are removed and the
-   affected queries asked again.
+   recomputed in numpy with ``str.count``); then boolean trees, terms
+   with synonyms and ``FUZZY 1|2`` (K2 through ``ast_words``, the two
+   threshold programs), held against set algebra over the host CSR,
+   Python substring checks per tree or synonym group, and a numpy
+   ``bincount`` with a Python edit distance; a direct ``search_or`` check
+   (K2's OR form); then rows are removed and the affected queries asked
+   again.
 5. flat verified serve: the same at FLAT_DOCS documents with
    ``MYGRAM_TEXT_LAYOUT=flat`` (K4 and K5).
 6. plain serve: PR 1's unverified SEARCH/COUNT serve at PLAIN_DOCS
@@ -54,6 +61,7 @@ import asyncio  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -66,6 +74,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dense_and": ("mygramdb_tpu_torch/csrc/dense_and.cu",
                   "mygramdb_tpu/ops/bitmap_ops.py:184"),
+    "reduce_rows": ("mygramdb_tpu_torch/csrc/dense_and.cu",
+                    "mygramdb_tpu/ops/bitmap_ops.py:308"),
     "slice_gather": ("mygramdb_tpu_torch/csrc/slice_gather.cu",
                      "mygramdb_tpu/ops/posting_ops.py:69"),
     "tf_rows_flat": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
@@ -74,7 +84,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                             "mygramdb_tpu/ops/verify_ops.py:875"),
     "tf_rows_padded": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
                        "mygramdb_tpu/ops/verify_ops.py:489"),
+    "row_gather": ("mygramdb_tpu_torch/csrc/row_gather.cu",
+                   "e2e/profile_gather.py:104"),
 }
+# the probe's matrix (e2e/profile_gather.py:94-98): the verified serve's
+# own within a few rows
+P1_ROWS, P1_ROW_CELLS, P1_GATHERED = 1_130_496, 1024, 131_072
+FUZZY_CAP = 131_072    # the all-sparse threshold program returns no more
 FLAT_DOCS = 100_000    # documents of the flat-layout verified serve
 PLAIN_DOCS = 300_000   # documents of the unverified serve
 # maxT of the verified serve's corpus (its p99 document passes 512 code
@@ -243,6 +259,129 @@ def kernel_phase(gen):
     emit({"phase": "kernels", "kernel": "slice_gather", "buckets":
           [2048, 65536]})
     return out
+
+
+def words_on_card(gen, V: int, W: int):
+    """(V + 2, W) random int32 words on the card, row V all-ones and row
+    V + 1 all-zeros."""
+    import torch
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (V + 2, W), dtype=torch.int32,
+                       generator=gen).cuda()
+    bm[V] = -1
+    bm[V + 1] = 0
+    return bm
+
+
+def reduce_rows_numbers(gen, op: str, B: int, K: int, W: int) -> dict:
+    """K2 at one shape over random rows: exact against its plain
+    version, both timed. The bound reads each distinct row once and
+    writes (B, W)."""
+    import torch
+    from mygramdb_tpu_torch.ops import bitmap_ops
+    V = 96
+    bm = words_on_card(gen, V, W)
+    rows = torch.randint(0, V, (B, K), dtype=torch.int32,
+                         generator=gen).cuda()
+    got = bitmap_ops.reduce_rows(bm, rows, op)
+    want = bitmap_ops._reduce_rows_plain(bm, rows, op)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K2 disagrees: op={op} B={B} K={K} W={W}")
+    distinct = int(torch.unique(rows).numel())
+    return {"max_abs_err": int((got.long() - want.long()).abs().max()),
+            "ms": cuda_ms(lambda: bitmap_ops.reduce_rows(bm, rows, op)),
+            "plain_ms": cuda_ms(
+                lambda: bitmap_ops._reduce_rows_plain(bm, rows, op)),
+            "shape": f"op={op} B={B} K={K} W={W}",
+            **bound(4 * (distinct * W + B * K + B * W), B * K * W)}
+
+
+def reduce_rows_phase(gen) -> dict:
+    """K2, both operations, against its plain version over the widths of
+    1.1M and 10M documents, rows padded with the operation's identity
+    row; then timed at K1's shape. -> {op: numbers}."""
+    import torch
+    from mygramdb_tpu_torch.ops import bitmap_ops
+    V, checks = 96, 0
+    for W in (34816, 313344):
+        bm = words_on_card(gen, V, W)
+        for B in (1, 8, 64):
+            for K in (1, 8, 32):
+                for op in ("and", "or"):
+                    # low-index rows repeat, so some ANDs keep bits set
+                    rows = torch.randint(0, 4, (B, K), dtype=torch.int32,
+                                         generator=gen)
+                    rows[:, K // 2 + 1:] = V if op == "and" else V + 1
+                    rows = rows.cuda()
+                    got = bitmap_ops.reduce_rows(bm, rows, op)
+                    want = bitmap_ops._reduce_rows_plain(bm, rows, op)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"K2 disagrees: op={op} W={W} B={B} K={K}")
+                    check(bool(got.any()) and not bool((got == -1).all()),
+                          f"K2 degenerate result: op={op} W={W} B={B} K={K}")
+                    checks += 1
+        del bm
+    out = {op: reduce_rows_numbers(gen, op, 64, 8, 34816)
+           for op in ("and", "or")}
+    emit({"phase": "kernels", "kernel": "reduce_rows (K2)", "checks": checks,
+          "timed": out})
+    return out
+
+
+def row_gather_phase(gen) -> dict:
+    """P1 against its plain version and beside ``torch.index_select`` (the
+    one PyTorch call for the same function) at the probe's shape: rows of
+    P1_ROW_CELLS u16 cells out of a matrix of P1_ROWS, P1_GATHERED of them;
+    the last rows start past 2^31 bytes."""
+    import torch
+    from mygramdb_tpu_torch.tools import profile_gather as pg
+    N, rowT, R = P1_ROWS, P1_ROW_CELLS, P1_GATHERED
+    g = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen)))
+    padded = torch.randint(-2 ** 15, 2 ** 15, (N, rowT), dtype=torch.int16,
+                           device="cuda", generator=g)
+    ids = torch.randint(0, N, (R,), dtype=torch.int32, device="cuda",
+                        generator=g)
+    ids[:4] = torch.tensor([0, N - 1, N - 1, N - 2], dtype=torch.int32)
+    got = pg.gather_rows(padded, ids)
+    want = pg._gather_rows_plain(padded, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "P1 disagrees with its plain version")
+    check(torch.equal(got, torch.index_select(padded, 0, ids)),
+          "P1 disagrees with index_select")
+    err = int((got.long() - want.long()).abs().max())
+    del got, want
+    row_bytes = rowT * padded.element_size()
+    distinct = int(torch.unique(ids).numel())
+    out = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: pg.gather_rows(padded, ids)),
+           "plain_ms": cuda_ms(lambda: pg._gather_rows_plain(padded, ids)),
+           "library_ms": cuda_ms(
+               lambda: torch.index_select(padded, 0, ids)),
+           "shape": f"N={N} rowT={rowT} u16 R={R}",
+           **bound(row_bytes * (distinct + R) + 4 * R, 0)}
+    emit({"phase": "kernels", "kernel": "row_gather (P1)", "timed": out})
+    return out
+
+
+def probe_phase() -> int:
+    """The probe of the row gather (P1's own path), through its entry
+    point; its lines are the phase's record. -> P1 launches it made."""
+    from mygramdb_tpu_torch.ops import runtime
+    from mygramdb_tpu_torch.tools import profile_gather
+    import torch
+    t0 = time.time()
+    lines = []
+    runtime.reset_launches()
+    records = profile_gather.main([], out=lines.append)
+    torch.cuda.synchronize()
+    launches = dict(runtime.launches)
+    emit({"phase": "probe", "lines": lines, "records": records,
+          "launches": launches, "seconds": time.time() - t0})
+    check(launches["row_gather"] > 0 and launches["slice_gather"] > 0,
+          f"the probe launched no row gather or slice gather: {launches}")
+    torch.cuda.empty_cache()
+    return launches["row_gather"]
 
 
 def synthetic_pack(gen, n_docs: int, u32: bool):
@@ -450,8 +589,30 @@ def verify_kernel_phase(gen, n_docs: int):
 # Serve phases
 # ---------------------------------------------------------------------------
 
-def write_inputs(docs: int, seed: int, verified: bool):
-    """Seed JSONL of the synthetic corpus + a JSON config; -> paths."""
+def synonym_groups(gen, seed: int):
+    """Synonym groups over the corpus's vocabulary: EN words of several
+    frequency ranks and 2-kanji terms, mixed in one group too."""
+    import numpy as np
+    ja = gen.sample_ja_terms(6, term_len=2,
+                             rng=np.random.default_rng(seed + 7))
+    used = set()
+
+    def word(rank: int) -> str:
+        w = next(w for w in gen.vocab[rank:] if len(w) >= 4
+                 and w not in KEYWORDS and w not in used)
+        used.add(w)
+        return w
+
+    return [[word(120), word(2500), word(15000)], [word(45), word(7000)],
+            [ja[0], ja[1], word(3000)], [ja[2], ja[3]],
+            [ja[4], word(600), ja[5]]]
+
+
+def write_inputs(docs: int, seed: int, verified: bool,
+                 synonyms: bool = False):
+    """Seed JSONL of the synthetic corpus + a JSON config (with a synonym
+    file when asked); -> (generator, paths, status column, synonym
+    groups)."""
     import numpy as np
     from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
     work = os.path.join(WORK, f"{docs}_{int(verified)}")
@@ -476,11 +637,17 @@ def write_inputs(docs: int, seed: int, verified: bool):
     }
     if verified:
         cfg["memory"] = {"verify_text": "all"}
+    groups = synonym_groups(gen, seed) if synonyms else []
+    if groups:
+        syn_path = os.path.join(work, "synonyms.tsv")
+        with open(syn_path, "w", encoding="utf-8") as f:
+            f.write("".join("\t".join(g) + "\n" for g in groups))
+        cfg["tables"][0]["synonyms"] = {"enable": True, "file": syn_path}
     cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     status = np.arange(docs + 1, dtype=np.int64) % 3
-    return gen, seed_path, cfg_path, status
+    return gen, seed_path, cfg_path, status, groups
 
 
 def query_grams(ctx, raw: str):
@@ -497,9 +664,15 @@ class Reference:
     and, for a verified table, Python substring checks over the stored
     normalized texts and BM25 in numpy (no device code)."""
 
-    def __init__(self, ctx, status, texts=None):
+    def __init__(self, ctx, status, texts=None, synonyms=()):
         import numpy as np
         self.ctx = ctx
+        # normalized term -> its synonym group, normalized
+        self.synonyms = {}
+        for group in synonyms:
+            norm = [ctx.normalize(t) for t in group]
+            for t in norm:
+                self.synonyms[t] = norm
         self.built = ctx.index.built
         self.td = ctx.index.term_dict
         self.status = status
@@ -547,8 +720,112 @@ class Reference:
                 dtype=np.int64)
         return self._cache[key]
 
+    def _in_text(self, raw: str, ids):
+        """Which of ids hold the normalized term in their stored text."""
+        import numpy as np
+        n = self.ctx.normalize(raw)
+        return np.fromiter((n in self.texts[d] for d in ids.tolist()),
+                           dtype=bool, count=ids.size)
+
+    def tree_ids(self, tree):
+        """A boolean tree ('t', term) | ('!', child) | ('&', ...) |
+        ('|', ...): set algebra over the terms' gram-AND masks, NOT taken
+        within all documents; then the same tree over substring checks of
+        the survivors' stored texts."""
+        import numpy as np
+        everything = np.ones(self.status.size, dtype=bool)
+        everything[0] = False
+
+        def walk(node, leaf, universe):
+            if node[0] == "t":
+                return leaf(node[1])
+            if node[0] == "!":
+                return universe & ~walk(node[1], leaf, universe)
+            parts = [walk(c, leaf, universe) for c in node[1:]]
+            return reduce((lambda a, b: a & b) if node[0] == "&"
+                          else (lambda a, b: a | b), parts)
+
+        ids = np.flatnonzero(walk(
+            tree, lambda t: self._mask(self.term_ids(t)), everything))
+        keep = walk(tree, lambda t: self._in_text(t, ids),
+                    np.ones(ids.size, dtype=bool))
+        return ids[keep]
+
+    def synonym_ids(self, terms):
+        """OR within each term's synonym group, AND across the terms:
+        first over gram-AND masks, then over substring checks."""
+        import numpy as np
+        groups = [self.synonyms.get(self.ctx.normalize(t),
+                                    [self.ctx.normalize(t)]) for t in terms]
+        m = np.ones(self.status.size, dtype=bool)
+        for group in groups:
+            m &= reduce(lambda a, b: a | b,
+                        [self._mask(self.term_ids(v)) for v in group])
+        ids = np.flatnonzero(m)
+        keep = np.ones(ids.size, dtype=bool)
+        for group in groups:
+            keep &= reduce(lambda a, b: a | b,
+                           [self._in_text(v, ids) for v in group])
+        return ids[keep]
+
+    def fuzzy_candidates(self, raw: str, dist: int):
+        """Docs holding at least max(1, |grams| - dist * ngram_size) of the
+        term's base grams (the standard emission, without the extra kanji
+        bigrams): a bincount over their postings."""
+        import numpy as np
+        from mygramdb_tpu_torch.utils import textproc
+        key = ("fuzzy", raw, dist)
+        if key not in self._cache:
+            t = self.ctx.table_cfg
+            base = sorted(set(textproc.generate_query_ngrams(
+                self.ctx.normalize(raw), t.ngram_size, t.kanji_ngram_size,
+                t.cross_boundary_ngrams)))
+            need = max(1, len(base) - dist * max(t.ngram_size, 1))
+            tids = [x for x in (self.td.get(g) for g in base)
+                    if x is not None]
+            cnt = np.zeros(self.status.size, dtype=np.int64)
+            for x in tids:
+                cnt[self.built.postings_of(x)] += 1
+            self._cache[key] = np.flatnonzero(cnt >= need)
+        return self._cache[key]
+
+    def fuzzy_ids(self, raw: str, dist: int):
+        """Candidates whose text holds the term, or a whitespace token
+        within dist edits of it."""
+        import numpy as np
+        n = self.ctx.normalize(raw)
+        ids = self.fuzzy_candidates(raw, dist)
+        near = {}  # token -> within dist edits of the term
+
+        def matches(text: str) -> bool:
+            if n in text:
+                return True
+            for tok in text.split():
+                if abs(len(tok) - len(n)) <= dist:
+                    hit = near.get(tok)
+                    if hit is None:
+                        hit = near[tok] = edit_distance(tok, n) <= dist
+                    if hit:
+                        return True
+            return False
+
+        keep = np.fromiter((matches(self.texts[d]) for d in ids.tolist()),
+                           dtype=bool, count=ids.size)
+        return ids[keep]
+
     def ids(self, q: dict):
         import numpy as np
+        kind = q.get("kind")
+        if kind:
+            # these depend on no removal: computed once for each query
+            key = ("kind", q["line"])
+            if key not in self._cache:
+                self._cache[key] = (
+                    self.tree_ids(q["tree"]) if kind == "bool" else
+                    self.synonym_ids(q["terms"]) if kind == "syn" else
+                    self.fuzzy_ids(q["terms"][0], q["dist"]))
+            ids = self._cache[key]
+            return ids[~np.isin(ids, list(self.removed))]
         m = reduce(lambda a, b: a & b,
                    [self._mask(self.term_text_ids(t)) for t in q["terms"]])
         for t in q.get("not", ()):
@@ -616,6 +893,19 @@ class Reference:
                 f"{d}:{s:.7g}" for d, s in zip(ids[order][:10].tolist(),
                                                want_scores[:10]))
         return None
+
+
+def edit_distance(a: str, b: str) -> int:
+    """Levenshtein distance between two strings, the full table row by
+    row."""
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                           prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
 
 
 def term_kind(ctx, word: str):
@@ -695,16 +985,14 @@ def make_queries(gen, ctx, n: int, seed: int):
     return finish_queries(makers, rng, n, nogram)
 
 
-def make_verified_queries(gen, ctx, texts, n: int, seed: int):
-    """Distinct queries for a verify_text table: 3- and 4-character CJK
-    substrings cut from the stored texts (so that some verify and some
-    only share grams), EN words with dense and sparse grams, two-term AND,
-    NOT, FILTER, COUNT and SORT _score with one and two terms and with a
-    self-overlapping term."""
-    import numpy as np
+def verified_pools(gen, ctx, texts, rng, skip=()):
+    """Term pools of a verify_text table, none of them in skip: 3- and
+    4-character CJK substrings cut from the stored texts (so that some
+    verify and some only share grams), EN words whose grams are all dense
+    rows, EN words with a sparse gram, the commonest words, and
+    self-overlapping words. -> (cjk, dense_w, sparse_w, common, borders,
+    ja_docs)."""
     from mygramdb_tpu_torch.ops.verify_ops import has_self_overlap
-    rng = np.random.default_rng(seed)
-    pick = pick_from(rng)
     ja_docs = [d for d in rng.integers(1, len(texts), 4000).tolist()
                if texts[d] and not texts[d].isascii()]
     cjk = []
@@ -715,7 +1003,7 @@ def make_verified_queries(gen, ctx, texts, n: int, seed: int):
         if term_kind(ctx, t[p:p + L]) is not None:
             cjk.append(t[p:p + L])
     vocab = [w for w in gen.vocab[:20_000]
-             if len(w) >= 3 and w not in KEYWORDS]
+             if len(w) >= 3 and w not in KEYWORDS and w not in skip]
     dense_w = [w for w in vocab[:3000] if term_kind(ctx, w) == "dense"]
     sparse_w = [w for w in vocab[200:6000] if term_kind(ctx, w) == "probed"]
     # a small corpus makes every ASCII bigram dense: CJK terms drive then
@@ -727,6 +1015,19 @@ def make_verified_queries(gen, ctx, texts, n: int, seed: int):
           f"verified query pools too small: cjk={len(cjk)} "
           f"dense={len(dense_w)} sparse={len(sparse_w)} "
           f"borders={len(borders)}")
+    return cjk, dense_w, sparse_w, common, borders, ja_docs
+
+
+def make_verified_queries(gen, ctx, texts, n: int, seed: int, skip=()):
+    """Distinct queries for a verify_text table over ``verified_pools``:
+    one term, two-term AND, NOT, FILTER, COUNT and SORT _score with one
+    and two terms and with a self-overlapping term. No term is in skip
+    (the synonym file's terms: these queries take no synonym path)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pick = pick_from(rng)
+    cjk, dense_w, sparse_w, common, borders, _ = verified_pools(
+        gen, ctx, texts, rng, skip)
     en = dense_w + sparse_w
 
     def scored(terms):
@@ -752,14 +1053,132 @@ def make_verified_queries(gen, ctx, texts, n: int, seed: int):
     return finish_queries(makers, rng, n)
 
 
+def expression(node, top: bool = True) -> str:
+    """A boolean tree as the protocol writes it: (a OR b), (a AND NOT b)."""
+    if node[0] == "t":
+        return node[1]
+    if node[0] == "!":
+        inner = "NOT " + expression(node[1], False)
+        return f"({inner})" if top else inner
+    word = " AND " if node[0] == "&" else " OR "
+    return "(" + word.join(expression(c, False) for c in node[1:]) + ")"
+
+
+def make_kind_queries(gen, ctx, ref, texts, groups, seed: int):
+    """Queries of the boolean, synonym and fuzzy paths for a verify_text
+    table. Boolean: the five tree shapes of tests/test_device_ast.py over
+    dense, sparse and CJK terms. Synonym: every term of the synonym file,
+    alone, AND another term, and counted. Fuzzy: long EN words as they
+    are (FUZZY 1), with a letter dropped (FUZZY 1) and with two letters
+    swapped (FUZZY 2), at most 45 of them, and 3-character terms of rare
+    kanji (every base gram sparse). A fuzzy term with more than FUZZY_CAP
+    candidates is dropped. -> (queries, fuzzy terms dropped for the
+    cap)."""
+    import numpy as np
+    from mygramdb_tpu_torch.utils import textproc
+    rng = np.random.default_rng(seed + 3)
+    pick = pick_from(rng)
+    skip = {t for g in groups for t in g}
+    cjk, dense_w, sparse_w, _, _, ja_docs = verified_pools(
+        gen, ctx, texts, rng, skip)
+    terms = dense_w + sparse_w + cjk
+
+    def t():
+        return ("t", pick(terms))
+
+    def tree(cmd, node):
+        return dict(cmd=cmd, kind="bool", tree=node, terms=[],
+                    desc=bool(rng.integers(2)))
+
+    shapes = [
+        (0.30, lambda: ("&", ("|", t(), t()), t())),
+        (0.25, lambda: ("&", t(), ("!", t()))),
+        (0.04, lambda: ("!", ("t", pick(dense_w)))),
+        (0.13, lambda: ("|", t(), ("t", "zzznope"))),
+        (0.28, lambda: ("&", ("|", t(), ("t", pick(cjk))),
+                        ("!", ("&", t(), t())))),
+    ]
+    weights = np.asarray([w for w, _ in shapes])
+    out = []
+    for i in range(160):
+        node = shapes[int(rng.choice(len(shapes),
+                                     p=weights / weights.sum()))][1]()
+        out.append(tree("COUNT" if i % 7 == 6 else "SEARCH", node))
+
+    for group in groups:
+        for term in group:
+            out.append(search([term], bool(rng.integers(2)), kind="syn"))
+            out.append(search([term, pick(terms)], True, kind="syn"))
+            out.append(search([pick(terms), term], False, kind="syn"))
+            out.append(dict(cmd="COUNT", terms=[term], kind="syn"))
+
+    def fuzzy(term, dist):
+        return search([term], True, kind="fuzzy", dist=dist)
+
+    # the longer the word, the more of its bigrams a candidate must hold
+    long_w = [w for w in gen.vocab[:60_000] if len(w) >= 12
+              and w not in KEYWORDS and w not in skip]
+    fz = []
+    for _ in range(40):
+        w = pick(long_w)
+        p = int(rng.integers(1, len(w) - 2))
+        fz += [fuzzy(w, 1), fuzzy(w[:p] + w[p + 1:], 1),
+               fuzzy(w[:p] + w[p + 1] + w[p] + w[p + 2:], 2)]
+    # rare kanji: every base gram of the term a sparse term
+    dense_row, td, t_cfg = (ctx.index.device.dense_row, ctx.index.term_dict,
+                            ctx.table_cfg)
+    sparse_char = {}
+
+    def rare(ch: str) -> bool:
+        if ch not in sparse_char:
+            tid = td.get(ch)
+            sparse_char[ch] = (textproc.is_cjk_ideograph(ord(ch))
+                               and tid is not None and dense_row[tid] < 0)
+        return sparse_char[ch]
+
+    kanji = []
+    for d in ja_docs:
+        x = texts[d]
+        for p in range(len(x) - 2):
+            if rare(x[p]) and rare(x[p + 1]) and rare(x[p + 2]):
+                base = set(textproc.generate_query_ngrams(
+                    x[p:p + 3], t_cfg.ngram_size, t_cfg.kanji_ngram_size,
+                    t_cfg.cross_boundary_ngrams))
+                tids = [td.get(g) for g in base]
+                if None not in tids and all(dense_row[i] < 0 for i in tids):
+                    kanji.append(x[p:p + 3])
+                break
+        if len(kanji) == 30:
+            break
+    check(len(kanji) >= 10, f"only {len(kanji)} rare-kanji fuzzy terms")
+    fz += [fuzzy(k, 1 + i % 2) for i, k in enumerate(kanji)]
+    dropped = kept_en = 0
+    for q in fz:
+        if ref.fuzzy_candidates(q["terms"][0], q["dist"]).size > FUZZY_CAP:
+            dropped += 1
+        elif q["terms"][0].isascii() and kept_en == 45:
+            continue  # enough EN fuzzy queries under the cap
+        else:
+            kept_en += q["terms"][0].isascii()
+            out.append(q)
+    for q in out:
+        q["line"] = render(q)
+    return out, dropped
+
+
 def render(q: dict) -> str:
-    parts = [q["cmd"], "articles", q["terms"][0]]
+    if q.get("kind") == "bool":
+        parts = [q["cmd"], "articles", expression(q["tree"])]
+    else:
+        parts = [q["cmd"], "articles", q["terms"][0]]
     for t in q["terms"][1:]:
         parts += ["AND", t]
     for t in q.get("not", ()):
         parts += ["NOT", t]
     if q.get("filter"):
         parts += ["FILTER", "status", "=", "1"]
+    if q.get("kind") == "fuzzy":
+        parts += ["FUZZY", str(q["dist"])]
     if q.get("score"):
         parts += ["SORT", "_score", "DESC", "LIMIT", "100"]
     elif q["cmd"] == "SEARCH":
@@ -792,15 +1211,36 @@ async def drive(port: int, queries, conns: int):
     return results
 
 
+def search_or_check(ctx, ref, words) -> dict:
+    """``SegmentedIndex.search_or`` (no served query reaches it) over the
+    grams of each word against the union of their postings in the host
+    CSR. -> what was checked."""
+    import numpy as np
+    sizes = []
+    for w in words:
+        grams = sorted(query_grams(ctx, w))
+        tids = [t for t in (ref.td.get(g) for g in grams) if t is not None]
+        want = reduce(np.union1d, [ref.built.postings_of(t) for t in tids],
+                      np.empty(0, dtype=np.int32))
+        got = ctx.index.search_or(grams)
+        check(np.array_equal(got, want),
+              f"search_or({w!r}) differs from the union of its postings")
+        sizes.append(int(got.size))
+    return {"via": "direct SegmentedIndex.search_or calls", "calls":
+            len(sizes), "ids": sum(sizes)}
+
+
 def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                 conns: int = 64, verified: bool = False,
                 layout: str = "auto", profile_path: str = "",
-                kernels=(), routes_needed=()):
+                kernels=(), routes_needed=(), kinds: bool = False):
     """Load docs documents through ``Application``, serve n_queries over
-    TCP from conns connections, remove rows and re-ask; every answer is
-    checked. kernels and routes_needed must each have served queries in
-    this phase. -> (launches, summary)."""
+    TCP from conns connections (with kinds, then the boolean, synonym and
+    fuzzy queries and the ``search_or`` check), remove rows and re-ask;
+    every answer is checked. kernels and routes_needed must each have
+    served queries in this phase. -> (launches, summary)."""
     import numpy as np
+    from mygramdb_tpu_torch import native
     from mygramdb_tpu_torch.app.application import Application
     from mygramdb_tpu_torch.config import load_config
     from mygramdb_tpu_torch.ops import runtime
@@ -808,7 +1248,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
 
     t_phase = time.time()
     t0 = time.time()
-    gen, seed_path, cfg_path, status = write_inputs(docs, seed, verified)
+    gen, seed_path, cfg_path, status, groups = write_inputs(
+        docs, seed, verified, synonyms=kinds)
     t_corpus = time.time() - t0
     config = load_config(cfg_path)
     app = Application(config, seed_path=seed_path)
@@ -830,7 +1271,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
             "n_words": dev.n_words, "dense_terms": dev.n_dense,
             "terms": int(dev.lengths.size),
             "device_postings": int(dev.postings.numel()),
-            "device_bytes": dev.memory_usage()}
+            "device_bytes": dev.memory_usage(),
+            "native_host_library": native._load() is not None}
     texts = None
     if verified:
         st = ctx.fresh_device_text()
@@ -844,11 +1286,24 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                      "text_shape": list(st.codepoints.shape),
                      "text_bytes": st.memory_usage(),
                      "text_overflow": len(st._overflow)})
-        queries = make_verified_queries(gen, ctx, texts, n_queries, seed)
+        queries = make_verified_queries(
+            gen, ctx, texts, n_queries, seed,
+            skip={t for g in groups for t in g})
     else:
         queries = make_queries(gen, ctx, n_queries, seed)
     emit(load)
-    ref = Reference(ctx, status, texts)
+    ref = Reference(ctx, status, texts, groups)
+    kind_queries, kind_summary = [], {}
+    if kinds:
+        check(ctx.synonyms is not None
+              and ctx.synonyms.group_count == len(groups),
+              "the synonym file was not loaded")
+        t0 = time.time()
+        kind_queries, dropped = make_kind_queries(gen, ctx, ref, texts,
+                                                  groups, seed)
+        kind_summary = {"queries": len(kind_queries),
+                        "fuzzy_dropped_for_cap": dropped,
+                        "make_s": time.time() - t0}
     loop = asyncio.new_event_loop()
     server_thread = threading.Thread(target=loop.run_forever, daemon=True)
     server_thread.start()
@@ -861,14 +1316,36 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         t0 = time.perf_counter()
         results = asyncio.run(drive(srv.port, queries, conns))
         wall = time.perf_counter() - t0
+        kind_results = []
+        if kinds:
+            # before the deletes: a boolean tree runs on the card only
+            # while the table has no delta
+            t0 = time.perf_counter()
+            kind_results = asyncio.run(drive(srv.port, kind_queries, conns))
+            kind_wall = time.perf_counter() - t0
+            kind_summary["search_or"] = search_or_check(
+                ctx, ref, [q["terms"][0] for q in queries[:12]])
+            klat = sorted(s for _, _, s in kind_results)
+            by_class = {}
+            for q, _, sec in kind_results:
+                by_class.setdefault(query_class(ctx, q), []).append(sec)
+            kind_summary.update({
+                "qps": len(kind_results) / kind_wall,
+                "p50_ms": 1e3 * klat[len(klat) // 2],
+                "p99_ms": 1e3 * klat[int(len(klat) * 0.99)],
+                "classes": {k: {"queries": len(v), "p50_ms":
+                                1e3 * sorted(v)[len(v) // 2]}
+                            for k, v in sorted(by_class.items())},
+                "routes_before_remove": dict(runtime.routes)})
+        first = results + kind_results
         # remove rows that answers contained; ask the queries whose
         # match sets held them again
-        hit = sorted({int(p) for _, r, _ in results
+        hit = sorted({int(p) for _, r, _ in first
                       if r.startswith("OK RESULTS") for p in r.split()[3:]})
         rng = np.random.default_rng(seed + 1)
         removed = set(int(x) for x in rng.choice(
             hit, size=min(100, len(hit)), replace=False))
-        again = [q for q, _, _ in results
+        again = [q for q, _, _ in first
                  if removed.intersection(ref.ids(q).tolist())]
         for pk in removed:
             check(ctx.remove_row(str(pk)) is not None, f"remove {pk}")
@@ -876,17 +1353,19 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         launches = dict(runtime.launches)
         forms = dict(runtime.launch_forms)
         routes = dict(runtime.routes)
+        k2_shapes = sorted(runtime.launch_shapes["reduce_rows"].items(),
+                           key=lambda kv: -kv[1])
         b1 = (batcher.batches_executed, batcher.queries_batched)
         t0 = time.time()
         bad = []
-        for answered, gone in ((results, set()), (results2, removed)):
+        for answered, gone in ((first, set()), (results2, removed)):
             ref.removed = gone
             for q, resp, _ in answered:
                 want = ref.mismatch(q, resp)
                 if want is not None:
                     bad.append((q["line"], resp[:200], want[:200]))
         t_ref = time.time() - t0
-        errors = sum(1 for _, r, _ in results + results2
+        errors = sum(1 for _, r, _ in first + results2
                      if not r.startswith("OK"))
         lat = sorted(s for _, _, s in results)
         avg_batch = (b1[1] - b0[1]) / max(b1[0] - b0[0], 1)
@@ -908,6 +1387,17 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
             "query_classes": classes, "reference_s": t_ref}
         if verified:
             summary["maxT"] = st.maxT
+        if kinds:
+            kind_summary.update({
+                "requeried_after_remove": sum(1 for q in again
+                                              if q.get("kind")),
+                "delta_docs_after_remove": len(ctx.index.delta),
+                "nonzero_answers": sum(1 for _, r, _ in kind_results
+                                       if r not in ("OK RESULTS 0",
+                                                    "OK COUNT 0"))})
+            summary["kinds"] = kind_summary
+            summary["reduce_rows_shapes"] = [
+                [*shape, n] for shape, n in k2_shapes[:8]]
         check(not bad, f"{len(bad)} answers differ from the reference, "
                        f"first: {bad[:5]}")
         check(len(results) >= n_queries, "too few queries answered")
@@ -918,16 +1408,25 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                   f"{k} was not launched by the served queries: {launches}")
         for r in routes_needed:
             check(routes[r] > 0, f"no query took the {r} route: {routes}")
+        if "reduce_rows" in kernels:
+            for f in ("reduce_rows.and", "reduce_rows.or"):
+                check(forms[f] > 0, f"no K2 launch of form {f}: {forms}")
+        if kinds:
+            check(kind_summary["nonzero_answers"] > len(kind_results) // 3,
+                  "too few boolean, synonym and fuzzy queries matched")
         if not verified:
             # FILTER queries ride K1 as filter rows
             check(forms["dense_and.extra_rows"] > 0,
                   f"no K1 launch carried filter rows: {forms}")
             check(avg_batch > 1,
                   f"micro-batcher average batch {avg_batch} <= 1")
+        summary["host_max_rss_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
         summary["seconds"] = time.time() - t_phase
         emit(summary)
         if profile_path:
-            profile_phase(srv.port, ctx, queries, profile_path, name)
+            profile_phase(srv.port, ctx, queries + kind_queries,
+                          profile_path, name)
     finally:
         asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -939,6 +1438,9 @@ def query_class(ctx, q: dict) -> str:
     """The query's command and clauses, and the kind of each of its terms:
     "dense" (every gram a bitmap row), "sparse" (a sparse driver with more
     grams to probe), "covered" (one sparse gram: probe-free) or "nogram"."""
+    if q.get("kind"):
+        return q["cmd"] + {"bool": " BOOLEAN", "syn": " SYNONYM",
+                           "fuzzy": " FUZZY"}[q["kind"]]
     kinds = set()
     for t in q["terms"]:
         k = term_kind(ctx, t)
@@ -1065,15 +1567,27 @@ def main(argv=None) -> int:
         gen = torch.Generator().manual_seed(args.seed)
         t0 = time.time()
         timings = kernel_phase(gen)
+        k2_at_k1_shape = reduce_rows_phase(gen)
         timings.update(verify_kernel_phase(gen, args.docs))
+        timings["row_gather"] = row_gather_phase(gen)
         emit({"phase": "kernels", "seconds": time.time() - t0})
-        launches = {}
+        launches = {"row_gather": probe_phase()}
         verified_routes = ("fused_dense", "fused_sparse", "verify_exact")
         got, served = serve_phase(
             "verified_serve", args.docs, args.seed, 1500, verified=True,
-            profile_path=args.profile,
-            kernels=("dense_and", "slice_gather", "tf_rows_padded"),
-            routes_needed=verified_routes)
+            profile_path=args.profile, kinds=True,
+            kernels=("dense_and", "reduce_rows", "slice_gather",
+                     "tf_rows_padded"),
+            routes_needed=verified_routes + (
+                "ast_device", "threshold_merge", "threshold_bitmap",
+                "or_rows"))
+        # K2's line: the shape that took most of the served launches
+        op, B, K, W, _ = served["reduce_rows_shapes"][0]
+        timings["reduce_rows"] = reduce_rows_numbers(gen, op, B, K, W)
+        emit({"phase": "kernels", "kernel": "reduce_rows (K2)",
+              "most_launched_shape": timings["reduce_rows"],
+              "at_dense_and_shape": k2_at_k1_shape})
+        launches["reduce_rows"] = got["reduce_rows"]
         check(served["maxT"] == TEXT_MAXT,
               f"the verified serve's maxT is {served['maxT']}: the kernel "
               f"phase checked K6 at rows of {TEXT_MAXT} + NEEDLE_CAP cells")
@@ -1112,7 +1626,8 @@ def main(argv=None) -> int:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None,
+                     "bound_by": t["bound_by"],
+                     "library_ms": t.get("library_ms"),
                      "shape": t["shape"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

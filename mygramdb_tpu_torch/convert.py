@@ -7,6 +7,12 @@ into numpy, in the shape ``DeviceIndex.from_state`` takes and
 same for the text store and ``DeviceTextStore.from_state``. Tests use them
 to show that both packages hold, and verify over, the same data. They
 touch the JAX arrays only through ``np.asarray`` and import no JAX.
+
+The boolean, OR and fuzzy paths (``ast_words``, ``search_or``,
+``search_by_threshold``) read only what ``state_from_jax`` already carries
+(bitmaps, postings, offsets, lengths, tombstones), so they need nothing
+new here; ``tests/test_torch_boolean.py`` and
+``tests/test_torch_threshold.py`` run them on a carried-over state.
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
-// K1: dense row-AND with NOT rows, filter rows, tombstones and popcount.
+// K1: dense row-AND with NOT rows, filter rows, tombstones and popcount;
+// K2 (below it): the bare row reduce, AND or OR, with nothing folded in.
 //
+// K1
+// --
 // Replaces mygramdb_tpu/ops/bitmap_ops.py::dense_query_pallas (kernels
 // _dense_query_kernel_kop, _dense_query_kernel, _dense_query_kernel_blocked)
 // and folds in the NOT and filter forms that the JAX package sends to
@@ -79,6 +82,46 @@ dense_and_kernel(const uint4* __restrict__ bm, int64_t wv,
   }
 }
 
+// K2: row gather + AND / OR reduce.
+//
+// Replaces mygramdb_tpu/ops/bitmap_ops.py::_reduce_rows_pallas (kernel
+// _reduce_rows_kernel). For each query b and word w:
+//
+//   out[b, w] = AND_k bm[rows[b, k], w]     (kAnd; pad rows with all-ones)
+//   out[b, w] = OR_k  bm[rows[b, k], w]     (else; pad rows with all-zeros)
+//
+// No tombstones, no filter rows and no count: the boolean tree applies
+// those itself, after combining its leaves. K is at least 1.
+//
+// What bounds it: device-memory bytes, B * K * W * 4 read (rows that repeat
+// come from the L2 cache) and B * W * 4 written; one integer operation per
+// word read. As in K1 each thread moves 16 bytes per row and reduces the K
+// rows in registers, neighbouring threads on neighbouring addresses, the
+// query's row ids in shared memory. The TPU kernel's grid axis over K (an
+// accumulator tile revisited K times) becomes the loop over k.
+template <bool kAnd>
+__global__ void __launch_bounds__(kThreads)
+reduce_rows_kernel(const uint4* __restrict__ bm, int64_t wv,
+                   const int32_t* __restrict__ rows, int K,
+                   uint4* __restrict__ out, int B) {
+  extern __shared__ int32_t s_rows[];  // K row ids
+  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    __syncthreads();  // the previous query's row ids are no longer read
+    for (int i = threadIdx.x; i < K; i += blockDim.x)
+      s_rows[i] = rows[(int64_t)b * K + i];
+    __syncthreads();
+    if (w < wv) {
+      uint4 acc = __ldg(bm + (int64_t)s_rows[0] * wv + w);
+      for (int k = 1; k < K; ++k) {
+        const uint4 v = __ldg(bm + (int64_t)s_rows[k] * wv + w);
+        acc = kAnd ? band(acc, v) : bor(acc, v);
+      }
+      out[(int64_t)b * wv + w] = acc;
+    }
+  }
+}
+
 }  // namespace
 
 // bm (V, W), rows (B, K), nrows (B, Kn), extra (F, W), deleted (W,),
@@ -98,6 +141,28 @@ extern "C" int mygram_dense_and(const void* bm, long long W, const void* rows,
         (const uint4*)bm, wv, (const int32_t*)rows, K, (const int32_t*)nrows,
         Kn, (const uint4*)extra, F, (const uint4*)deleted, (int32_t*)count,
         (uint4*)res, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+// bm (V, W), rows (B, K) with K >= 1, out (B, W); all int32, contiguous. W
+// is a multiple of 4 and bm and out are 16-byte aligned (the wrapper checks
+// both). op_and != 0 reduces with AND, else with OR. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mygram_reduce_rows(const void* bm, long long W, const void* rows,
+                                  int K, int op_and, void* out, int B,
+                                  void* stream) {
+  if (B > 0 && W > 0 && K > 0) {
+    const int64_t wv = W / 4;
+    const dim3 grid((unsigned)((wv + kThreads - 1) / kThreads),
+                    (unsigned)(B < 65535 ? B : 65535));
+    const size_t smem = (size_t)K * sizeof(int32_t);
+    if (op_and)
+      reduce_rows_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+          (const uint4*)bm, wv, (const int32_t*)rows, K, (uint4*)out, B);
+    else
+      reduce_rows_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+          (const uint4*)bm, wv, (const int32_t*)rows, K, (uint4*)out, B);
   }
   return (int)cudaGetLastError();
 }

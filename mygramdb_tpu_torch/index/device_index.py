@@ -14,7 +14,10 @@ Layout, as in the JAX package:
 
 All-dense AND queries run the row-AND kernel (K1); any sparse term makes
 the rarest sparse term's slice the candidate vector (K3 gathers it) and
-every other term probes it.
+every other term probes it. A boolean tree (``ast_words``) evaluates as
+word-bitmap algebra: every leaf's dense rows AND-reduced in one row-reduce
+launch (K2), its sparse slices scattered into words; ``search_or`` is K2's
+OR form; ``search_by_threshold`` is the fuzzy candidate count.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops import bitmap_ops, runtime
 from ..ops.bitmap_ops import bit_member
 from ..ops.posting_ops import (SENTINEL, bitmap_membership, gather_slices,
                                mask_to_topn, membership_rows)
+from ..ops.threshold_ops import threshold_count_bitmap, threshold_merge
 from .builder import BuiltIndex
 
 WBLOCK_WORDS = 1024  # W is padded to a multiple of this (32768 docs)
@@ -123,6 +127,35 @@ def _sparse_query(postings, bitmaps, deleted, extra, d_off, d_len,
     else:
         ids = torch.zeros(1, dtype=torch.int32, device=cands.device)
     return count, ids, mask[0], cands[0]
+
+
+def _ast_words_program(sig: tuple, bitmaps, postings, deleted, universe,
+                       rows, offs, lens, *, bucket: int, n_words: int):
+    """Evaluate a whole boolean-AST tree as word-bitmap algebra (reference
+    in-process Roaring set ops, index.cpp:378-446) -> (W,) words. ``sig``
+    is the tree shape: ('t', leaf_idx) | ('&', ...) | ('|', ...) |
+    ('!', child); leaf i is the AND-of-grams term bitmap of rows[i] (K
+    dense rows) and offs[i], lens[i] (S sparse slices). The dense rows of
+    all T leaves reduce in one K2 launch; the tree is walked over
+    tensors."""
+    leaves = bitmap_ops._term_bitmaps(bitmaps, rows, postings, offs, lens,
+                                      deleted, bucket=bucket,
+                                      n_words=n_words)
+
+    def build(node):
+        tag = node[0]
+        if tag == "t":
+            return leaves[node[1]]
+        if tag == "!":
+            return bitmap_ops.bm_andnot(universe, build(node[1]))
+        out = build(node[1])
+        for ch in node[2:]:
+            out = (bitmap_ops.bm_and if tag == "&" else bitmap_ops.bm_or)(
+                out, build(ch))
+        return out
+
+    # the leaves are cleared of tombstones; a NOT brings them back
+    return bitmap_ops.bm_andnot(build(sig), deleted)
 
 
 @dataclass
@@ -672,9 +705,127 @@ class DeviceIndex:
         return candidates[keep]
 
     # ------------------------------------------------------------------
+    # Boolean-AST device evaluation
+    # ------------------------------------------------------------------
+    def ast_words(self, sig: tuple, leaf_tids: Sequence[Sequence[int]],
+                  universe) -> Optional[np.ndarray]:
+        """Evaluate a boolean AST (shape ``sig`` over ``leaf_tids`` term
+        gram lists) on the device; returns the result words on the host
+        (W uint32), or None when a leaf's longest sparse slice passes the
+        last candidate bucket (the caller then evaluates the tree with
+        host set algebra; counted as route ``ast_host``). ``universe`` is
+        the all-live-docs bitmap for NOT complements."""
+        rows_l, sp_l = [], []
+        max_len = 1
+        for tids in leaf_tids:
+            if tids is None:
+                # unknown/empty gram: the term matches nothing
+                dense_rows, sparse = [self.zeros_row], []
+            else:
+                dense_rows, sparse = self.classify(list(tids))
+                if any(int(self.lengths[t]) == 0 for t in sparse):
+                    dense_rows, sparse = [self.zeros_row], []
+            rows_l.append(dense_rows or [self.ones_row])
+            sp_l.append(list(sparse))
+            max_len = max([max_len] + [int(self.lengths[t]) for t in sparse])
+        if self._cand_bucket(max_len) > self.candidate_buckets[-1]:
+            runtime.count_route("ast_host")
+            return None
+        T = len(leaf_tids)
+        K = max(len(r) for r in rows_l)
+        S = max(len(sp) for sp in sp_l)
+        rows = np.full((T, K), self.ones_row, dtype=np.int32)
+        offs = np.zeros((T, S), dtype=np.int64)
+        lens = np.zeros((T, S), dtype=np.int64)
+        for i in range(T):
+            rows[i, :len(rows_l[i])] = rows_l[i]
+            for j, t in enumerate(sp_l[i]):
+                offs[i, j] = self.dev_offsets[t]
+                lens[i, j] = self.lengths[t]
+        runtime.dispatches.bump()
+        runtime.count_route("ast_device")
+        words = _ast_words_program(
+            sig, self.bitmaps, self.postings, self.deleted, universe,
+            self._tensor(rows, torch.int32), self._tensor(offs, torch.int64),
+            self._tensor(lens, torch.int64), bucket=max_len,
+            n_words=self.n_words)
+        return words.cpu().numpy().view(np.uint32)
+
+    def universe_words(self, doc_ids: np.ndarray) -> torch.Tensor:
+        """Device bitmap of all live docs (NOT complement base), built on
+        the host from the doc store's id set and uploaded once per segment
+        generation (the caller caches it)."""
+        return runtime.to_device(
+            bitmap_ops.make_bitmap_from_ids(doc_ids, self.n_words),
+            self._device)
+
+    # ------------------------------------------------------------------
+    def search_or(self, tids: Sequence[int]) -> np.ndarray:
+        """Union, ascending doc ids (host materialization; the boolean
+        OR / NOT path). Tombstones applied."""
+        if not tids:
+            return np.empty(0, dtype=np.int32)
+        runtime.count_route("or_rows")
+        dense_rows, sparse_tids = self.classify(list(tids))
+        parts = []
+        if dense_rows:
+            words = bitmap_ops.or_rows(
+                self.bitmaps, self._tensor([dense_rows], torch.int32))[0]
+            parts.append(self._bitmap_to_ids(
+                words.cpu().numpy().view(np.uint32) & ~self.deleted_host))
+        for t in sparse_tids:
+            parts.append(self.postings_of(t))
+        out = np.unique(np.concatenate(parts)).astype(np.int32)
+        if sparse_tids and self.deleted_host.any():
+            out = out[~self._deleted_mask(out)]
+        return out
+
+    def _deleted_mask(self, ids: np.ndarray) -> np.ndarray:
+        in_range = (ids >= 0) & (ids < self.n_docs_capacity)
+        safe = np.where(in_range, ids, 0)
+        hit = ((self.deleted_host[safe >> 5]
+                >> (safe & 31).astype(np.uint32)) & 1).astype(bool)
+        return hit & in_range
+
+    def search_by_threshold(self, tids: Sequence[int], min_count: int,
+                            max_out: int = 131072) -> np.ndarray:
+        """Doc ids contained in >= min_count of the given term postings
+        (fuzzy backbone; reference index.cpp:448-528). As in the JAX
+        package the all-sparse form returns at most max_out ids and the
+        form with dense terms every id."""
+        if not tids or min_count <= 0:
+            return np.empty(0, dtype=np.int32)
+        dense_rows, sparse_tids = self.classify(list(tids))
+        offs = self._tensor([self.dev_offsets[t] for t in sparse_tids],
+                            torch.int64)
+        lens_host = [int(self.lengths[t]) for t in sparse_tids]
+        lens = self._tensor(lens_host, torch.int64)
+        width = max([1] + lens_host)
+        if not dense_rows:
+            # all sparse: gather, sort, rank-count
+            runtime.dispatches.bump(2)
+            runtime.count_route("threshold_merge")
+            slices = gather_slices(self.postings, offs, lens, width)
+            _, ids = threshold_merge(slices, min_count, max_out)
+            out = ids.cpu().numpy()
+            out = out[out >= 0]
+            if self.deleted_host.any():
+                out = out[~self._deleted_mask(out)]
+            return out.astype(np.int32)
+        # any dense term: one per-document count over the whole id space
+        runtime.dispatches.bump()
+        runtime.count_route("threshold_bitmap")
+        words = threshold_count_bitmap(
+            self.bitmaps, self._tensor(dense_rows, torch.int32),
+            self.postings, offs, lens, min_count, self.deleted,
+            g_sparse=len(sparse_tids), c_bucket=width)
+        # tombstones already cleared on the device
+        return self._bitmap_to_ids(words.cpu().numpy().view(np.uint32))
+
+    # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Run the dense and sparse programs once (first CUDA use, kernel
-        library load) before serving."""
+        """Run the dense, sparse and boolean-tree programs once (first
+        CUDA use, kernel library load) before serving."""
         opts_all = SearchOptions(limit=0)
         opts_top = SearchOptions(limit=100, descending=True)
         for opts in (opts_all, opts_top):
@@ -684,6 +835,8 @@ class DeviceIndex:
             if self.dense_row[tid] < 0:
                 for opts in (opts_all, opts_top):
                     self._sparse_and_path([tid], [], [], [], [], opts)
+            self.ast_words(("&", ("t", 0), ("t", 1)), [[tid], [tid]],
+                           self._ones_words)
 
     def memory_usage(self) -> int:
         return int(self.bitmaps.numel() * 4 + self.postings.numel() * 4
@@ -692,12 +845,6 @@ class DeviceIndex:
     # ------------------------------------------------------------------
     # Device paths of the JAX package not ported yet
     # ------------------------------------------------------------------
-    search_or = not_ported(__name__, "DeviceIndex.search_or", "11")
-    ast_words = not_ported(__name__, "DeviceIndex.ast_words", "11")
-    universe_words = not_ported(__name__, "DeviceIndex.universe_words",
-                                "11")
-    search_by_threshold = not_ported(
-        __name__, "DeviceIndex.search_by_threshold", "10")
     plan_positional = not_ported(__name__, "DeviceIndex.plan_positional",
                                  "14")
     search_verified_positional = not_ported(

@@ -1,10 +1,12 @@
 """Device-side ops on PyTorch: the port of ``mygramdb_tpu.ops``.
 
-Every op has a plain PyTorch version; the row-AND (K1), the CSR slice
-gather (K3) and the window-TF family of the verified search (K4, K5, K6)
-are hand-written CUDA kernels launched for CUDA tensors (see
-``runtime.kernels``). Modules not ported yet are placeholders that raise
-NotImplementedError naming their ROADMAP item.
+Every op has a plain PyTorch version; the row-AND (K1), the row reduce
+(K2, ``and_rows`` / ``or_rows``), the CSR slice gather (K3) and the
+window-TF family of the verified search (K4, K5, K6) are hand-written CUDA
+kernels launched for CUDA tensors (see ``runtime.kernels``). Modules not
+ported yet (``positional_ops``) are placeholders that raise
+NotImplementedError naming their ROADMAP item; ``wire`` is not carried
+into the port.
 """
 
 from . import runtime

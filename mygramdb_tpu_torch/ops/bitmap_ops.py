@@ -9,6 +9,11 @@ sentinels.
 
 The row-AND is the hand-written CUDA kernel K1 (``csrc/dense_and.cu``)
 behind ``dense_and``; ``_dense_query_plain`` is its plain PyTorch version.
+The bare row reduce (AND or OR, nothing folded in) is K2, in the same
+source, behind ``reduce_rows`` / ``and_rows`` / ``or_rows``, with
+``_reduce_rows_plain`` beside it; every row reduce of the boolean path goes
+through it. The word algebra and the posting scatter of that path are torch
+ops, as they are XLA ops in the JAX package.
 The top-n stages were never Pallas in the JAX package and are plain torch
 here: the same ids in the same order, -1 padded.
 """
@@ -135,9 +140,76 @@ def dense_query_auto(bitmaps, rows, nrows, deleted, extra,
                      extra if has_extra else None, deleted)
 
 
-# K2 (bitmap_ops.py::_reduce_rows_pallas) serves only the boolean OR path.
-and_rows = not_ported(__name__, "and_rows", "11")
-or_rows = not_ported(__name__, "or_rows", "11")
+# ---------------------------------------------------------------------------
+# K2: row gather + AND / OR reduce (nothing folded in: no tombstones, no
+# count)
+# ---------------------------------------------------------------------------
+
+def _reduce_rows_plain(bitmaps: torch.Tensor, rows: torch.Tensor,
+                       op: str) -> torch.Tensor:
+    """Plain PyTorch version of K2 (same signature as ``reduce_rows``):
+    one (B, W) gather per k, never a (B, K, W) tensor."""
+    B, K = rows.shape
+    acc = torch.full((B, bitmaps.shape[1]), -1 if op == "and" else 0,
+                     dtype=torch.int32, device=bitmaps.device)
+    for k in range(K):
+        g = bitmaps[rows[:, k]]
+        acc = acc & g if op == "and" else acc | g
+    return acc
+
+
+def reduce_rows(bitmaps: torch.Tensor, rows: torch.Tensor,
+                op: str) -> torch.Tensor:
+    """K2 wrapper. bitmaps (V, W), rows (B, K), both int32 -> (B, W):
+    ``out[b] = AND_k bitmaps[rows[b, k]]`` (``op="and"``; pad with the
+    all-ones row) or the OR (``op="or"``; pad with the all-zeros row).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which moves 16-byte vectors: W must be a multiple of 4 words, the
+    matrix 16-byte aligned and K at least 1."""
+    if op not in ("and", "or"):
+        raise ValueError(f"reduce_rows: op must be 'and' or 'or', not {op!r}")
+    if bitmaps.device.type == "cpu":
+        return _reduce_rows_plain(bitmaps, rows, op)
+    runtime.require_cuda("reduce_rows", bitmaps, rows)
+    for t in (bitmaps, rows):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise runtime.kernel_error(
+                "reduce_rows: tensors must be contiguous int32")
+    if bitmaps.dim() != 2 or rows.dim() != 2:
+        raise runtime.kernel_error("reduce_rows: bitmaps (V, W), rows (B, K)")
+    B, K = rows.shape
+    W = bitmaps.shape[1]
+    if W % 4 or bitmaps.data_ptr() % 16:
+        raise runtime.kernel_error(
+            f"reduce_rows: W={W} must be a multiple of 4 words and the "
+            "matrix 16-byte aligned")
+    if not 0 < K <= 12288:  # 48 KB of static-limit shared memory for row ids
+        raise runtime.kernel_error(
+            f"reduce_rows: {K} rows per query (1..12288 are taken)")
+    out = torch.empty((B, W), dtype=torch.int32, device=bitmaps.device)
+    if B == 0:
+        return out
+    err = runtime.kernels().mygram_reduce_rows(
+        bitmaps.data_ptr(), W, rows.data_ptr(), K, int(op == "and"),
+        out.data_ptr(), B, runtime.stream_of(bitmaps))
+    runtime.check_launch(err, "reduce_rows", [f"reduce_rows.{op}"],
+                         shape=(op, B, K, W))
+    return out
+
+
+def and_rows(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """AND of selected bitmap rows. rows (B, K) int32, padded with the
+    all-ones sentinel row id -> (B, W) int32. One dispatch."""
+    runtime.dispatches.bump()
+    return reduce_rows(bitmaps, rows, "and")
+
+
+def or_rows(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """OR of selected bitmap rows (pad with the all-zeros sentinel row
+    id). One dispatch."""
+    runtime.dispatches.bump()
+    return reduce_rows(bitmaps, rows, "or")
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +306,95 @@ def dense_search_topn_packed(bitmaps, rows, nrows, deleted, extra,
                                     has_not, has_extra, n, descending)
     return (count.cpu().numpy().astype(np.int64),
             ids.cpu().numpy().astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Device bitmap algebra (the boolean-AST path: whole trees evaluate over
+# word vectors on the device)
+# ---------------------------------------------------------------------------
+
+def bm_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def bm_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def bm_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & ~b
+
+
+def _bitmaps_from_slices(slices: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(N, bucket) doc ids -> (N, n_words) word bitmaps. Ids below 0 or at
+    and past ``n_words * 32`` (the slice pads among them) land in an extra
+    word that is cut off. The scatter adds: a slice's doc ids are
+    distinct, so every (word, bit) is added once, and in int32 the bit-31
+    pattern is just the wrapped sum."""
+    w = slices >> 5
+    w = torch.where((slices >= 0) & (w < n_words), w, n_words)
+    bit = torch.ones_like(slices) << (slices & 31)
+    words = torch.zeros((slices.shape[0], n_words + 1), dtype=torch.int32,
+                        device=slices.device)
+    words.scatter_add_(1, w.long(), bit)
+    return words[:, :n_words]
+
+
+def bitmap_from_postings(postings: torch.Tensor, off, ln, *, bucket: int,
+                         n_words: int) -> torch.Tensor:
+    """Scatter one CSR posting slice (K3 gathers it) into a (W,) word
+    bitmap on the device."""
+    from .posting_ops import gather_slices
+    dev = postings.device
+    ids = gather_slices(
+        postings, torch.as_tensor(off, dtype=torch.int64, device=dev
+                                  ).reshape(1),
+        torch.as_tensor(ln, dtype=torch.int64, device=dev).reshape(1), bucket)
+    return _bitmaps_from_slices(ids, n_words)[0]
+
+
+def _term_bitmaps(bitmaps, rows, postings, offs, lens, deleted, *,
+                  bucket: int, n_words: int, real=None) -> torch.Tensor:
+    """``term_bitmap`` for T terms at once: rows (T, K), offs and lens
+    (T, S), real (T, S) or None -> (T, W). One K2 launch reduces every
+    term's dense rows and one K3 launch gathers every sparse slice."""
+    from .posting_ops import gather_slices
+    T, S = offs.shape
+    words = reduce_rows(bitmaps, rows, "and")
+    if S:
+        ids = gather_slices(postings, offs.reshape(-1), lens.reshape(-1),
+                            bucket)
+        sp = _bitmaps_from_slices(ids, n_words).reshape(T, S, n_words)
+        fill = torch.full((T, S), -1, dtype=torch.int32, device=sp.device)
+        if real is not None:
+            fill = torch.where(real, 0, fill)
+        sp = torch.where((lens > 0)[..., None], sp, fill[..., None])
+        for s in range(S):
+            words = words & sp[:, s]
+    return words & ~deleted
+
+
+def term_bitmap(bitmaps: torch.Tensor, rows: torch.Tensor,
+                postings: torch.Tensor, offs: torch.Tensor,
+                lens: torch.Tensor, deleted: torch.Tensor, *, bucket: int,
+                n_words: int, real=None) -> torch.Tensor:
+    """(W,) bitmap of docs containing ALL grams of one term: AND of the
+    dense rows (K,) (padded with the all-ones row; K2) and of the
+    scattered sparse slices offs/lens (S,) (a slot of length 0 is padding,
+    the AND identity). Tombstones cleared. K and S are the tensors'
+    shapes, not arguments.
+
+    ``real`` ((S,) bool, optional) marks slots that hold a real term whose
+    slice may be empty: such a slot contributes zeros, not the padding
+    identity."""
+    return _term_bitmaps(bitmaps, rows[None], postings, offs[None],
+                         lens[None], deleted, bucket=bucket, n_words=n_words,
+                         real=None if real is None else real[None])[0]
+
+
+# the JAX package's final reduction of a tree; nothing calls it there
+bitmap_count_topn = not_ported(__name__, "bitmap_count_topn",
+                               "'not carried into the port'")
 
 
 def make_bitmap_from_ids(doc_ids, n_words: int) -> np.ndarray:

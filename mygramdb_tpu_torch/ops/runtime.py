@@ -7,10 +7,11 @@
   ops layer, bumped at the same call sites as in the JAX package.
 - ``launches``: one plain integer per hand-written kernel, bumped by its
   wrapper where it launches the kernel and nowhere else; ``launch_forms``
-  counts the K1 launches that carry NOT rows or filter rows, the
-  window-TF launches in non-overlapping mode and the K6 launches that
-  read whole matrix rows (the text store's calls); ``routes`` counts the
-  queries each device route of the index served.
+  counts the K1 launches that carry NOT rows or filter rows, the K2
+  launches by their operation, the window-TF launches in non-overlapping
+  mode and the K6 launches that read whole matrix rows (the text store's
+  calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W);
+  ``routes`` counts the queries each device route of the index served.
 - ``kernel_error``: what a wrapper raises when its kernel refuses its
   inputs or fails to launch (see ``errors.py``).
 - ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
@@ -82,22 +83,34 @@ class _DispatchCounter:
 dispatches = _DispatchCounter()
 
 # kernel name -> launches; reset by callers that measure a window
-launches: Dict[str, int] = {"dense_and": 0, "slice_gather": 0,
-                            "tf_rows_flat": 0, "tf_rows_flat_global": 0,
-                            "tf_rows_padded": 0}
+launches: Dict[str, int] = {"dense_and": 0, "reduce_rows": 0,
+                            "slice_gather": 0, "tf_rows_flat": 0,
+                            "tf_rows_flat_global": 0, "tf_rows_padded": 0,
+                            "row_gather": 0}
 # launches by the optional inputs or modes they carried
 launch_forms: Dict[str, int] = {"dense_and.not_rows": 0,
                                 "dense_and.extra_rows": 0,
+                                "reduce_rows.and": 0, "reduce_rows.or": 0,
                                 "tf_rows.nonoverlap": 0,
                                 "tf_rows_padded.whole_rows": 0}
+# kernel name -> {shape of the call: launches}, for the kernels whose
+# reported shape is the one the served queries launched most
+launch_shapes: Dict[str, Dict[tuple, int]] = {"reduce_rows": {}}
 # device route -> queries it served (bumped where the route runs):
 # fused_dense / fused_sparse are the fused verified programs, fused_clipped
 # the queries they handed back to the exact path (pre > Kv), verify_exact
-# the text-store calls (verify, contains, TF, BM25 top-n) of that path
+# the text-store calls (verify, contains, TF, BM25 top-n) of that path;
+# ast_device the boolean trees evaluated on the device, ast_host those
+# handed back to the host by size (a leaf's slice past the last candidate
+# bucket); threshold_merge / threshold_bitmap the two fuzzy candidate
+# programs; or_rows the unions
 routes: Dict[str, int] = {"dense_batched": 0, "dense_unbatched": 0,
                           "sparse_batched": 0, "sparse_unbatched": 0,
                           "fused_dense": 0, "fused_sparse": 0,
-                          "fused_clipped": 0, "verify_exact": 0}
+                          "fused_clipped": 0, "verify_exact": 0,
+                          "ast_device": 0, "ast_host": 0,
+                          "threshold_merge": 0, "threshold_bitmap": 0,
+                          "or_rows": 0}
 _launch_lock = threading.Lock()  # batches flush on many worker threads
 
 
@@ -106,6 +119,8 @@ def reset_launches() -> None:
         for counts in (launches, launch_forms, routes):
             for k in counts:
                 counts[k] = 0
+        for shapes in launch_shapes.values():
+            shapes.clear()
 
 
 def count_route(name: str, queries: int = 1) -> None:
@@ -187,6 +202,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mygram_dense_and.argtypes = [p, i64, p, i32, p, i32, p, i32, p,
                                      p, p, i32, p]
     lib.mygram_dense_and.restype = i32
+    lib.mygram_reduce_rows.argtypes = [p, i64, p, i32, i32, p, i32, p]
+    lib.mygram_reduce_rows.restype = i32
+    lib.mygram_gather_rows.argtypes = [p, i64, p, i64, p, p]
+    lib.mygram_gather_rows.restype = i32
     lib.mygram_slice_gather.argtypes = [p, i64, p, p, i32, i32, p, p]
     lib.mygram_slice_gather.restype = i32
     lib.mygram_tf_rows.argtypes = [p, i32, i64, p, p, p, p, p, p,
@@ -207,10 +226,10 @@ def kernels() -> ctypes.CDLL:
     return _lib
 
 
-def check_launch(err: int, name: str, forms=()) -> None:
+def check_launch(err: int, name: str, forms=(), shape=None) -> None:
     """Raise on a refused or failed launch (the C entry points return
-    ``cudaGetLastError()``); count the launch, and its ``forms``,
-    otherwise."""
+    ``cudaGetLastError()``); count the launch, its ``forms`` and its
+    ``shape``, otherwise."""
     if err != 0:
         msg = kernels().mygram_error_string(err).decode()
         raise kernel_error(f"{name} kernel launch failed: {msg} ({err})")
@@ -218,6 +237,9 @@ def check_launch(err: int, name: str, forms=()) -> None:
         launches[name] += 1
         for f in forms:
             launch_forms[f] += 1
+        if shape is not None:
+            shapes = launch_shapes[name]
+            shapes[shape] = shapes.get(shape, 0) + 1
 
 
 def stream_of(t: torch.Tensor) -> int:

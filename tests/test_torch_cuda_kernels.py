@@ -358,3 +358,222 @@ def test_verified_search_on_cuda_matches_cpu():
                                   for _, st in pair)
             assert np.array_equal(ta, tc) and np.array_equal(la, lc)
 
+
+# ---------------------------------------------------------------------------
+# K2: the row reduce (csrc/dense_and.cu), and the boolean / fuzzy paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["and", "or"])
+@pytest.mark.parametrize("B,K,W", [(1, 1, 4), (7, 3, 1028), (64, 8, 34816),
+                                   (9, 40, 313344)])
+def test_reduce_rows_matches_plain(op, B, K, W):
+    require_cuda()
+    g = torch.Generator().manual_seed(B * K + W)
+    V = 24
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (V + 2, W), dtype=torch.int32,
+                       generator=g)
+    bm[V], bm[V + 1] = -1, 0
+    rows = torch.randint(0, V, (B, K), dtype=torch.int32, generator=g)
+    rows[:, K // 2 + 1:] = V if op == "and" else V + 1
+    rows[0] = rows[0, 0]  # one row repeated
+    bm, rows = bm.cuda(), rows.cuda()
+    before = runtime.launches["reduce_rows"]
+    forms = dict(runtime.launch_forms)
+    shapes = runtime.launch_shapes["reduce_rows"].get((op, B, K, W), 0)
+    fn = bitmap_ops.and_rows if op == "and" else bitmap_ops.or_rows
+    got = fn(bm, rows)
+    want = bitmap_ops._reduce_rows_plain(bm, rows, op)
+    torch.cuda.synchronize()
+    assert runtime.launches["reduce_rows"] == before + 1
+    for o in ("and", "or"):
+        key = f"reduce_rows.{o}"
+        assert runtime.launch_forms[key] == forms[key] + (o == op)
+    assert runtime.launch_shapes["reduce_rows"][(op, B, K, W)] == shapes + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], bm[rows[0, 0].long()])
+
+
+def test_reduce_rows_more_queries_than_grid_rows():
+    require_cuda()
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (10, 8), dtype=torch.int32
+                       ).cuda()
+    rows = torch.randint(0, 10, (70_000, 3), dtype=torch.int32).cuda()
+    for op in ("and", "or"):
+        got = bitmap_ops.reduce_rows(bm, rows, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bitmap_ops._reduce_rows_plain(bm, rows, op))
+
+
+def test_reduce_rows_refuses_bad_inputs():
+    require_cuda()
+    bm = torch.zeros((6, 1024), dtype=torch.int32).cuda()
+    rows = torch.zeros((2, 3), dtype=torch.int32).cuda()
+    k1 = runtime.launches["dense_and"]
+    with pytest.raises(KernelError, match="multiple of 4"):
+        bitmap_ops.reduce_rows(bm[:, :1022].contiguous(), rows, "and")
+    with pytest.raises(KernelError, match="aligned"):
+        bitmap_ops.reduce_rows(
+            torch.zeros(6 * 1028 + 1, dtype=torch.int32).cuda()[1:].view(
+                6, 1028), rows, "or")
+    with pytest.raises(KernelError, match="contiguous"):
+        bitmap_ops.reduce_rows(bm[:, ::2], rows, "and")
+    with pytest.raises(KernelError, match="contiguous"):
+        bitmap_ops.reduce_rows(bm, rows.long(), "and")
+    with pytest.raises(KernelError, match="rows per query"):
+        bitmap_ops.reduce_rows(bm, rows[:, :0].contiguous(), "or")
+    with pytest.raises(KernelError):
+        bitmap_ops.reduce_rows(bm, rows.cpu(), "and")
+    assert runtime.launches["dense_and"] == k1  # K1 never stands in
+
+
+def test_posting_scatter_and_threshold_ops_on_cuda_match_cpu():
+    """The torch ops around K2 and K3 on the card against the CPU: the
+    posting scatter with a document at bit 31 and in the last word, the
+    term bitmap, both threshold programs."""
+    require_cuda()
+    from mygramdb_tpu_torch.ops import threshold_ops
+    g = np.random.default_rng(5)
+    W = 2048
+    n_docs = W * 32
+    sets = [np.union1d(g.choice(n_docs, int(g.integers(100, 5000)),
+                                replace=False), [31, n_docs - 1]
+                       ).astype(np.int32) for _ in range(5)]
+    lens = np.asarray([s.size for s in sets], dtype=np.int64)
+    offs = np.zeros(5, dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    post = torch.from_numpy(np.concatenate(sets))
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (10, W), dtype=torch.int32)
+    bm[8], bm[9] = -1, 0
+    rows = torch.tensor([1, 2, 8], dtype=torch.int32)
+    deleted = torch.randint(-2 ** 31, 2 ** 31 - 1, (W,), dtype=torch.int32
+                            ) & 0x10101010
+    offs_t, lens_t = torch.from_numpy(offs), torch.from_numpy(lens)
+    cpu = (bm, rows, post, offs_t, lens_t, deleted)
+    gpu = tuple(t.cuda() for t in cpu)
+    res = []
+    for b, r, p, o, ln, d in (cpu, gpu):
+        one = bitmap_ops.bitmap_from_postings(p, int(offs[1]), int(lens[1]),
+                                              bucket=8192, n_words=W)
+        term = bitmap_ops.term_bitmap(b, r, p, o[:3], ln[:3], d, bucket=8192,
+                                      n_words=W)
+        cnt = threshold_ops.threshold_count_bitmap(
+            b, r[:2], p, o, ln, 2, d, g_sparse=5, c_bucket=8192)
+        from mygramdb_tpu_torch.ops.posting_ops import gather_slices
+        total, ids = threshold_ops.threshold_merge(
+            gather_slices(p, o, ln, 8192), 3, 4096)
+        res.append([x.cpu() for x in (one, term, cnt, total, ids)])
+    torch.cuda.synchronize()
+    for a, c in zip(*res):
+        assert torch.equal(a, c)
+    one = res[1][0].numpy().view(np.uint32)
+    assert np.array_equal(one, bitmap_ops.make_bitmap_from_ids(sets[1], W))
+    assert one[0] >> 31 == 1 and one[-1] >> 31 == 1
+
+
+def test_boolean_and_fuzzy_paths_on_cuda_match_cpu():
+    """``ast_words``, ``search_or`` and ``search_by_threshold`` on the
+    card (K2 in both forms, K3) against the same index on the CPU."""
+    require_cuda()
+    from mygramdb_tpu_torch.index.builder import IndexBuilder
+    from mygramdb_tpu_torch.index.device_index import DeviceIndex
+    rng = np.random.default_rng(1)
+    b = IndexBuilder(2, 1, True)
+    words = ["".join(rng.choice(list("abcdefgh"), 3)) for _ in range(200)]
+    for d in range(1, 4000):
+        b.add_document(d, " ".join(rng.choice(words, 12)))
+    built = b.finalize()
+    gpu = DeviceIndex(built, dense_df_ratio=0.2, device="cuda")
+    cpu = DeviceIndex(built, dense_df_ratio=0.2, device="cpu")
+    for idx in (gpu, cpu):
+        idx.mark_deleted(range(1, 4000, 13))
+    assert gpu.n_dense > 0 and gpu.postings.numel() > 0
+    live = np.flatnonzero(built.lengths > 0)
+    sparse = live[gpu.dense_row[live] < 0]
+    uni = [idx.universe_words(np.arange(1, 4000)) for idx in (gpu, cpu)]
+    sigs = [("&", ("|", ("t", 0), ("t", 1)), ("t", 2)),
+            ("&", ("t", 0), ("!", ("t", 1))), ("!", ("t", 2)),
+            ("|", ("t", 0), ("t", 3)),
+            ("&", ("|", ("t", 0), ("t", 2)), ("!", ("&", ("t", 1),
+                                                   ("t", 0))))]
+    runtime.reset_launches()
+    for i in range(40):
+        leaves = [[int(t) for t in rng.choice(live, 1 + (i + j) % 3)]
+                  for j in range(3)] + [None]
+        for sig in sigs:
+            a = gpu.ast_words(sig, leaves, uni[0])
+            c = cpu.ast_words(sig, leaves, uni[1])
+            assert np.array_equal(a, c), (sig, leaves)
+        assert np.array_equal(gpu.search_or(leaves[0] + leaves[1]),
+                              cpu.search_or(leaves[0] + leaves[1]))
+        # mixed draws, then sparse terms alone (the sort-and-rank form)
+        for tids in (leaves[0] + leaves[1],
+                     [int(t) for t in rng.choice(sparse, 3)]):
+            for m in (1, 2, len(tids)):
+                assert np.array_equal(gpu.search_by_threshold(tids, m),
+                                      cpu.search_by_threshold(tids, m))
+    assert runtime.launch_forms["reduce_rows.and"] == 200
+    assert runtime.launch_forms["reduce_rows.or"] > 0
+    assert runtime.routes["threshold_merge"] > 0
+    assert runtime.routes["threshold_bitmap"] > 0
+
+
+# ---------------------------------------------------------------------------
+# P1: the row gather of the probe (csrc/row_gather.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,N,rowT,R", [
+    (torch.int16, 5000, 1024, 1001),       # a text matrix's rows
+    (torch.int16, 300, 8, 1),              # one 16-byte row
+    (torch.int32, 77, 36, 4099),           # rows of 144 bytes, ids repeat
+    (torch.uint8, 1000, 48, 333),
+])
+def test_gather_rows_matches_plain(dtype, N, rowT, R):
+    require_cuda()
+    from mygramdb_tpu_torch.tools import profile_gather as pg
+    g = torch.Generator().manual_seed(N + R)
+    src = torch.randint(0, 120, (N, rowT), generator=g).to(dtype).cuda()
+    ids = torch.randint(0, N, (R,), dtype=torch.int32, generator=g)
+    ids[-1] = N - 1
+    ids = ids.cuda()
+    before = runtime.launches["row_gather"]
+    got = pg.gather_rows(src, ids)
+    want = pg._gather_rows_plain(src, ids)
+    torch.cuda.synchronize()
+    assert runtime.launches["row_gather"] == before + 1
+    assert got.shape == (R, rowT) and torch.equal(got, want)
+    assert torch.equal(got, torch.index_select(src, 0, ids))
+
+
+def test_gather_rows_row_base_past_2_31_bytes():
+    require_cuda()
+    from mygramdb_tpu_torch.tools import profile_gather as pg
+    N, rowT = 1_130_496, 1024   # 2.3 GB: the last row starts past 2^31 bytes
+    src = torch.zeros((N, rowT), dtype=torch.int16, device="cuda")
+    marks = torch.tensor([0, 1, (2 ** 31) // 2048 - 1, (2 ** 31) // 2048,
+                          N - 2, N - 1], dtype=torch.int32).cuda()
+    src[marks.long()] = (torch.arange(6, dtype=torch.int16).cuda()
+                         + 1)[:, None]
+    ids = torch.cat([marks, marks.flip(0)])
+    got = pg.gather_rows(src, ids)
+    torch.cuda.synchronize()
+    assert got[:, 0].tolist() == [1, 2, 3, 4, 5, 6, 6, 5, 4, 3, 2, 1]
+    assert torch.equal(got, pg._gather_rows_plain(src, ids))
+
+
+def test_gather_rows_refuses_bad_inputs():
+    require_cuda()
+    from mygramdb_tpu_torch.tools import profile_gather as pg
+    src = torch.zeros((10, 1024), dtype=torch.int16).cuda()
+    ids = torch.zeros(4, dtype=torch.int32).cuda()
+    with pytest.raises(KernelError, match="multiple of 16"):
+        pg.gather_rows(src[:, :1022].contiguous(), ids)
+    with pytest.raises(KernelError, match="aligned"):
+        pg.gather_rows(torch.zeros(10 * 1024 + 1, dtype=torch.int16).cuda()
+                       [1:].view(10, 1024), ids)
+    with pytest.raises(KernelError, match="contiguous"):
+        pg.gather_rows(src[:, ::2], ids)
+    with pytest.raises(KernelError, match="int32"):
+        pg.gather_rows(src, ids.long())
+    with pytest.raises(KernelError):
+        pg.gather_rows(src, ids.cpu())
+    assert pg.gather_rows(src, ids[:0]).shape == (0, 1024)

@@ -160,12 +160,17 @@ def test_filter_by_ngrams_and_memory(pair):
 
 
 def test_paths_not_ported_raise(pair):
-    _, _, tdev = pair
-    for call in (lambda: tdev.search_or([1]),
-                 lambda: tdev.ast_words(("t", 0), [[1]], None),
-                 lambda: tdev.search_by_threshold([1], 1)):
+    built, _, tdev = pair
+    for call in (lambda: TD.DeviceIndex(built, mesh_shards=2),
+                 lambda: tdev.plan_positional(None, []),
+                 lambda: tdev.search_verified_positional([1], None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # the boolean, OR and fuzzy paths are ported
+    assert tdev.search_or([1]).dtype == np.int32
+    assert tdev.search_by_threshold([1], 1).dtype == np.int32
+    assert tdev.ast_words(("t", 0), [[1]], tdev._ones_words).dtype \
+        == np.uint32
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch):

@@ -2,8 +2,8 @@
 
 A subprocess blocks both (``sys.modules[name] = None`` makes any import of
 them fail), imports every module of ``mygramdb_tpu_torch``, then loads a
-small table with ``memory.verify_text: all`` and serves SEARCH, COUNT and
-``SORT _score`` queries on the CPU. A source scan shows that no file of the
+small table with ``memory.verify_text: all`` and serves SEARCH, COUNT,
+``SORT _score``, boolean-expression and ``FUZZY`` queries on the CPU. A source scan shows that no file of the
 port has an import naming the JAX package.
 """
 
@@ -51,11 +51,16 @@ ja = [t[5:8] for t in texts if not t.isascii()][:20]
 lines = [f"SEARCH articles {w} LIMIT 10" for w in gen.vocab[:20]]
 lines += [f"SEARCH articles {t} SORT _score DESC LIMIT 5" for t in ja]
 lines += [f"COUNT articles {w} FILTER status = 1" for w in gen.vocab[:10]]
+lines += [f"SEARCH articles (({a} OR {b}) AND NOT {c}) LIMIT 10"
+          for a, b, c in zip(gen.vocab[:8], gen.vocab[8:16], gen.vocab[16:24])]
+lines += [f"SEARCH articles {w} FUZZY 1 LIMIT 10" for w in gen.vocab[30:36]]
 out = [core.handle_line(x) for x in lines]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "mygramdb_tpu" or m.startswith("mygramdb_tpu.")))
 print(json.dumps({"modules": len(names), "loaded": loaded,
+                  "covered": [n for n in names if n.endswith((
+                      ".ops.threshold_ops", ".tools.profile_gather"))],
                   "responses": out,
                   "text_store": type(ctx.device_text).__module__}))
 """
@@ -70,6 +75,8 @@ def test_port_imports_and_serves_without_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["modules"] > 70
+    assert out["covered"] == ["mygramdb_tpu_torch.ops.threshold_ops",
+                              "mygramdb_tpu_torch.tools.profile_gather"]
     assert out["text_store"] == "mygramdb_tpu_torch.storage.device_text"
     assert all(r.startswith("OK") for r in out["responses"]), out
     assert sum(r not in ("OK RESULTS 0", "OK COUNT 0")

@@ -369,6 +369,124 @@ def test_raced_filter_rows_take_the_exact_path(request, monkeypatch,
     assert sum(r not in ("OK RESULTS 0", "OK COUNT 0") for r in got) >= 2
 
 
+@pytest.fixture(scope="module")
+def kinds_slices(torch_cpu, tmp_path_factory):
+    """A verified table with a synonym file holding an EN and a CJK group,
+    loaded by both packages."""
+    gen = CorpusGenerator(N_DOCS, seed=79, vocab_size=20_000)
+    words = [w for w in gen.vocab[:3000] if len(w) >= 4]
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    en_group = [words[3], words[40], words[700]]
+    cjk_group = [ja[0][4:6], ja[1][10:13], words[5]]
+    path = tmp_path_factory.mktemp("syn") / "synonyms.tsv"
+    path.write_text("\t".join(en_group) + "\n" + "\t".join(cjk_group) + "\n",
+                    encoding="utf-8")
+    table = dict(VERIFIED_CFG["tables"][0],
+                 synonyms={"enable": True, "file": str(path)})
+    cfg = dict(VERIFIED_CFG, tables=[table])
+    jcfg, jcat, jctx = load(JCatalog, gen, cfg)
+    tcfg, tcat, tctx = load(TCatalog, gen, cfg)
+    assert tctx.synonyms is not None and tctx.synonyms.group_count == 2
+    return (gen, words, ja, en_group, cjk_group, (jcfg, jcat, jctx),
+            (tcfg, tcat, tctx))
+
+
+def kinds_lines(words, ja, en_group, cjk_group, seed=13):
+    """Boolean trees (the shapes of tests/test_device_ast.py over common,
+    rare and CJK terms), synonym queries and FUZZY 1 / FUZZY 2."""
+    rng = np.random.default_rng(seed)
+    grouped = set(en_group + cjk_group)
+    pool = [w for w in words if w not in grouped]
+
+    def en():
+        return pool[int(rng.integers(400 if rng.integers(2) else len(pool)))]
+
+    def cjk():
+        d = ja[int(rng.integers(len(ja)))]
+        L = int(rng.integers(2, 4))
+        p = int(rng.integers(0, len(d) - L))
+        return d[p:p + L]
+
+    def typo(w):
+        p = int(rng.integers(1, len(w) - 1))
+        return w[:p] + w[p + 1] + w[p] + w[p + 2:]
+
+    trees = [
+        lambda: f"(({en()} OR {en()}) AND {en()})",
+        lambda: f"({en()} AND NOT {en()})",
+        lambda: f"(NOT {en()})",
+        lambda: f"({en()} OR zzznope)",
+        lambda: f"(({en()} OR {cjk()}) AND NOT ({en()} AND {en()}))",
+        lambda: f"(({cjk()} OR {cjk()}) OR {en()})",
+    ]
+    out = []
+    for i in range(36):
+        cmd = "COUNT articles" if i % 6 == 5 else "SEARCH articles"
+        tail = "" if i % 6 == 5 else " SORT id DESC LIMIT 100"
+        out.append(f"{cmd} {trees[i % len(trees)]()}{tail}")
+    for t in en_group + cjk_group:
+        out.append(f"SEARCH articles {t} LIMIT 100")
+        out.append(f"SEARCH articles {t} AND {en()} LIMIT 100")
+        out.append(f"COUNT articles {t}")
+    for i in range(12):
+        w = en()
+        out.append(f"SEARCH articles {w} FUZZY 1 LIMIT 100")
+        out.append(f"SEARCH articles {typo(w)} FUZZY {1 + i % 2} LIMIT 100")
+    out.append(f"SEARCH articles {cjk()} FUZZY 1 LIMIT 100")
+    return out
+
+
+def test_boolean_synonym_fuzzy_tcp_responses_are_byte_identical(kinds_slices):
+    """A boolean expression, a term with synonyms and FUZZY 1|2 answer the
+    same bytes from both servers, and the port's delta-free table takes
+    the device tree (``device_ast`` / ``device_synonym_ast``)."""
+    (gen, words, ja, en_group, cjk_group, (jcfg, jcat, jctx),
+     (tcfg, tcat, tctx)) = kinds_slices
+    lines = kinds_lines(words, ja, en_group, cjk_group)
+
+    async def ask(port):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        out = []
+        for line in lines:
+            writer.write(line.encode() + b"\r\n")
+            await writer.drain()
+            out.append(await asyncio.wait_for(reader.readline(), 60))
+        writer.close()
+        return out
+
+    async def main():
+        servers = [JTcp(JCore(jcfg, jcat), jcfg), TTcp(TCore(tcfg, tcat),
+                                                       tcfg)]
+        for s in servers:
+            await s.start()
+        try:
+            return await asyncio.gather(*[ask(s.port) for s in servers])
+        finally:
+            for s in servers:
+                await s.stop()
+
+    runtime.reset_launches()
+    jout, tout = asyncio.run(main())
+    for line, j, t in zip(lines, jout, tout):
+        assert t == j, line
+    assert all(r.startswith(b"OK") for r in tout)
+    assert sum(r not in (b"OK RESULTS 0\r\n", b"OK COUNT 0\r\n")
+               for r in tout) > len(lines) // 2
+    assert runtime.routes["ast_device"] >= 36
+    assert runtime.routes["threshold_merge"] \
+        + runtime.routes["threshold_bitmap"] >= 25
+
+    from mygramdb_tpu_torch.query import QueryParser
+    from mygramdb_tpu_torch.query.pipeline import SearchPipeline
+    pipe = SearchPipeline(tctx, tcfg)
+    for line, want in ((lines[0], "device_ast"),
+                       (f"SEARCH articles {en_group[0]} LIMIT 10",
+                        "device_synonym_ast")):
+        out = pipe.execute(QueryParser().parse(line), want_debug=True)
+        assert out.success, out.error
+        assert out.debug.optimization_used == want, line
+
+
 NO_JAX_SCRIPT = r"""
 import json, os, sys
 sys.modules["jax"] = None
