@@ -17,8 +17,9 @@ Phases, each printing one JSON line with its seconds:
    u32 packs, both count modes, with and without the range mask, cap 4
    and 32, 2 and 4 needles; K6 over a matrix of the verified serve's row
    width at the fused program's shape and at the text store's own (whole
-   rows of a 65,536-candidate chunk); P1 row gather over a matrix of the
-   verified serve's size, also beside ``torch.index_select``. Then the
+   rows of a 65,536-candidate chunk), each timed shape with its share of
+   the bound; P1 row gather over a matrix of the verified serve's size,
+   timed in ten alternating pairs with ``torch.index_select``. Then the
    probe ``mygramdb_tpu_torch.tools.profile_gather`` (P1's own path).
 4. verified serve: the server's own entry points (``Application`` with a
    seed file, ``TcpServer``) at --docs documents of the synthetic EN+JA
@@ -154,6 +155,32 @@ def cuda_ms(fn, reps: int = 25) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def dev_us(e) -> float:
+    """Device microseconds of a profiler event (the attribute's name
+    differs across torch versions)."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device milliseconds of the CUDA kernel whose name holds
+    ``kernel``, over reps back-to-back calls of fn under torch.profiler:
+    the kernel alone, without the wrapper's host path that ``cuda_ms``
+    also times. The mean is over the launches the profiler recorded (it
+    may drop some); None when it recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    seen = sum(e.count for e in hits)
+    return sum(dev_us(e) for e in hits) / seen / 1e3 if seen else None
 
 
 def kernel_phase(gen):
@@ -332,7 +359,8 @@ def row_gather_phase(gen) -> dict:
     """P1 against its plain version and beside ``torch.index_select`` (the
     one PyTorch call for the same function) at the probe's shape: rows of
     P1_ROW_CELLS u16 cells out of a matrix of P1_ROWS, P1_GATHERED of them;
-    the last rows start past 2^31 bytes."""
+    the last rows start past 2^31 bytes. P1 and ``index_select`` are timed
+    as ten alternating pairs; ms and library_ms are the medians."""
     import torch
     from mygramdb_tpu_torch.tools import profile_gather as pg
     N, rowT, R = P1_ROWS, P1_ROW_CELLS, P1_GATHERED
@@ -353,14 +381,18 @@ def row_gather_phase(gen) -> dict:
     del got, want
     row_bytes = rowT * padded.element_size()
     distinct = int(torch.unique(ids).numel())
+    pairs = [(cuda_ms(lambda: pg.gather_rows(padded, ids)),
+              cuda_ms(lambda: torch.index_select(padded, 0, ids)))
+             for _ in range(10)]
     out = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: pg.gather_rows(padded, ids)),
+           "ms": statistics.median(p for p, _ in pairs),
            "plain_ms": cuda_ms(lambda: pg._gather_rows_plain(padded, ids)),
-           "library_ms": cuda_ms(
-               lambda: torch.index_select(padded, 0, ids)),
+           "library_ms": statistics.median(lib for _, lib in pairs),
            "shape": f"N={N} rowT={rowT} u16 R={R}",
            **bound(row_bytes * (distinct + R) + 4 * R, 0)}
-    emit({"phase": "kernels", "kernel": "row_gather (P1)", "timed": out})
+    emit({"phase": "kernels", "kernel": "row_gather (P1)", "timed": out,
+          "pairs_ms": pairs,
+          "kernel_faster_in": sum(p < lib for p, lib in pairs)})
     return out
 
 
@@ -554,6 +586,8 @@ def verify_kernel_phase(gen, n_docs: int):
                 kw = dict(cap=cap, use_range=False, nonoverlap=False)
                 o = out[name]
                 o["ms"] = cuda_ms(lambda: kern(kw))
+                o["device_ms"] = device_ms(lambda: kern(kw),
+                                           "tf_rows_kernel")
                 o["plain_ms"] = cuda_ms(lambda: plain(kw), reps=5)
                 o["shape"] = (f"M={M} (B={B} x {Kv}) win={maxT} cap={cap} "
                               f"Nn={Nn} u16, {n_docs} docs")
@@ -579,8 +613,12 @@ def verify_kernel_phase(gen, n_docs: int):
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "tf_rows (K4, K5, K6)",
           "checks": checks,
-          "timed": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "shape")}
+          "timed": {k: {**{f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                             "bound_ms", "shape")},
+                        "share_of_bound": v["bound_ms"] / v["ms"],
+                        "device_share_of_bound":
+                            v["bound_ms"] / v["device_ms"]
+                            if v["device_ms"] else None}
                     for k, v in out.items()}})
     return out
 
@@ -1498,11 +1536,6 @@ def profile_phase(port: int, ctx, queries, path: str, serve: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
     busy = sum(dev_us(e) for e in events) / 1e6
 
     def calls(match):

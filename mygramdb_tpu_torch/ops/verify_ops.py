@@ -49,8 +49,11 @@ from . import runtime
 NEEDLE_CAP = 32  # needles longer than this fall back to host verification
 _CAP_BUCKETS = (4, 8, 16, 32)
 U16_SENTINEL = 0xFFFF
-# shared memory the kernel may use without opting in to more than 48 KB
-_SMEM_LIMIT = 48 * 1024
+# the kernel's rows a block (kWarps in csrc/verify_tf.cu), each staged in
+# its warp's own slice of shared memory
+_TF_WARPS = 8
+# shared memory a block may have on the H100 (227 KB, opted in above 48 KB)
+_SMEM_LIMIT = 232_448
 
 
 def needle_cap_bucket(max_len: int) -> int:
@@ -357,6 +360,16 @@ def _tf_rows_plain(text: torch.Tensor, starts: torch.Tensor,
     return torch.where(alive[:, None], res, out)
 
 
+def _tf_smem_bytes(span: int, itemsize: int, Nn: int, cap: int) -> int:
+    """Dynamic shared memory of one block of the kernel: each warp's slice
+    holds ``span`` cells at any start shift and the row's needle table, in
+    16-byte slots (``warp_bytes`` in csrc/verify_tf.cu)."""
+    per_vec = 16 // itemsize
+    slots = (span + 2 * per_vec - 2) // per_vec
+    table = (4 * (Nn * cap + Nn) + 15) // 16
+    return _TF_WARPS * 16 * (slots + table)
+
+
 def _tf_rows_launch(name: str, text: torch.Tensor, starts, lens, owner,
                     live, ndl, nlen, *, Kv: int, cap: int, win: int,
                     padded: bool, use_range: bool,
@@ -385,10 +398,15 @@ def _tf_rows_launch(name: str, text: torch.Tensor, starts, lens, owner,
     if cap < 1 or cap > NEEDLE_CAP or win < 1:
         raise runtime.kernel_error(f"{name}: cap {cap} or window {win} out "
                                    "of range")
-    smem = 4 * (win + cap + Nn * cap + Nn + (win + 31) // 32)
+    if text.data_ptr() % 16:
+        raise runtime.kernel_error(f"{name}: the pack must be 16-byte "
+                                   "aligned (the kernel loads 16-byte "
+                                   "vectors)")
+    smem = _tf_smem_bytes(win + cap, text.element_size(), Nn, cap)
     if smem > _SMEM_LIMIT:
-        raise runtime.kernel_error(f"{name}: window {win} with {Nn} needles "
-                                   f"needs {smem} bytes of shared memory")
+        raise runtime.kernel_error(f"{name}: window {win} + cap {cap} with "
+                                   f"{Nn} needles needs {smem} bytes of "
+                                   "shared memory a block")
     out = torch.empty((M, Nn + 1), dtype=torch.int32, device=text.device)
     if M == 0:
         return out

@@ -153,16 +153,22 @@ def test_device_index_on_cuda_matches_cpu():
 # K4-K6: the window-TF kernel family (csrc/verify_tf.cu)
 # ---------------------------------------------------------------------------
 
-def text_pack(u32: bool, N=3000, maxT=300, seed=0):
+def text_pack(u32: bool, N=3000, maxT=300, seed=0, runs=False):
     """A random pack over a small alphabet (so needles match often):
     (flat cells numpy, offsets int64, lengths int32). A u32 pack mixes in
-    non-BMP code points."""
+    non-BMP code points. With runs, the cells are one code point broken
+    every 50 cells, so "aa"-like needles hit more than 32 starts a row. The
+    last document is never empty: a row may end at the pack's last cell."""
     g = np.random.default_rng(seed)
     lens = g.integers(0, maxT + 1, N).astype(np.int32)
     lens[::17] = 0
+    lens[-1] = maxT
     alphabet = np.asarray([0x4E00, 0x4E01, 0x3042, 0x3043, 0x61, 0x62]
                           + ([0x1F600, 0x1F601] if u32 else []))
     flat = alphabet[g.integers(0, alphabet.size, int(lens.sum()))]
+    if runs:
+        flat = np.where(np.arange(flat.size) % 50 == 49, alphabet[1],
+                        alphabet[0])
     offs = np.zeros(N, dtype=np.int64)
     np.cumsum(lens[:-1], out=offs[1:])
     return flat.astype(np.uint32 if u32 else np.uint16), offs, lens
@@ -188,23 +194,58 @@ def needle_table(flat, offs, lens, B, Nn, cap, clamp_cell, seed=1):
     return ndl, nlen
 
 
+# The shapes the warp-per-row kernel must get right beside the random rows
+# ("random": win 300, a multiple of neither 32 nor the block's 8 rows):
+#   "edges"     every flat row starts off a 16-byte boundary, the pack's
+#               last document (its row ends at the pack's last cell, or
+#               the matrix's: padded rows read whole rows here) is asked
+#               for, every third row is dead, M = 6 x 67 is no multiple
+#               of the block's 8 rows;
+#   "long_docs" the window is shorter than the documents: the flat window
+#               ends inside them, the padded prefix width < rowT cuts them
+#               (cells at or past width count neither in doc_len nor as a
+#               match);
+#   "runs"      documents of one code point: more than 32 hits a row, so
+#               leftmost-greedy flag words chain;
+#   "few_rows"  M = 5, fewer rows than one block's warps.
+TF_EDGES = ["random", "edges", "long_docs", "runs", "few_rows"]
+
+
+@pytest.mark.parametrize("edge", TF_EDGES)
 @pytest.mark.parametrize("kernel", ["flat", "flat_global", "padded"])
 @pytest.mark.parametrize("u32", [False, True])
 @pytest.mark.parametrize("nonoverlap", [False, True])
 @pytest.mark.parametrize("use_range", [False, True])
 @pytest.mark.parametrize("cap,Nn", [(4, 2), (32, 4)])
-def test_tf_rows_match_plain(kernel, u32, nonoverlap, use_range, cap, Nn):
+def test_tf_rows_match_plain(edge, kernel, u32, nonoverlap, use_range, cap,
+                             Nn):
     require_cuda()
-    maxT, B, Kv = 300, 6, 200
-    flat, offs, lens = text_pack(u32, maxT=maxT)
+    maxT = 300
+    B, Kv = {"edges": (6, 67), "few_rows": (1, 5)}.get(edge, (6, 200))
+    flat, offs, lens = text_pack(u32, maxT=maxT, runs=edge == "runs")
     ndl, nlen = needle_table(flat, offs, lens, B, Nn, cap,
                              clamp_cell=use_range and not u32)
     dt = np.uint32 if u32 else np.uint16
     dev = torch.device("cuda")
     g = np.random.default_rng(2)
-    ids = g.integers(0, lens.size, B * Kv)
-    alive = g.random(B * Kv) < 0.8
+    M = B * Kv
+    ids = g.integers(0, lens.size, M)
+    alive = g.random(M) < 0.8
+    if edge == "edges":
+        per_vec = 16 // flat.itemsize
+        off_edge = np.flatnonzero((offs % per_vec != 0) & (lens > 0))
+        ids = off_edge[g.integers(0, off_edge.size, M)]
+        ids[::5] = lens.size - 1            # ends at the pack's last cell
+        alive = np.arange(M) % 3 != 1       # dead rows between live ones
+    if edge == "few_rows":  # one needle cut from the first row's document
+        ids = np.flatnonzero(lens >= 50)[:M]
+        alive[:] = True
+        L = min(cap, 3)
+        ndl[0, Nn - 1] = 0
+        ndl[0, Nn - 1, :L] = flat[offs[ids[0]]:offs[ids[0]] + L]
+        nlen[0, Nn - 1] = L
     row_lens = np.where(alive, lens[ids], 0).astype(np.int32)
+    win = maxT // 2 if edge == "long_docs" else maxT
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     ndl_t = t(verify_ops.cast_needles_i32(ndl, dt, cap))
     nlen_t = t(nlen)
@@ -216,20 +257,20 @@ def test_tf_rows_match_plain(kernel, u32, nonoverlap, use_range, cap, Nn):
         sent = -1 if u32 else np.int16(-1)
         padded = _pad_on_device(t(cells), t(offs), t(lens), rowT, int(sent))
         args = (padded, t(ids), t(row_lens), ndl_t, nlen_t)
-        kw.update(Kv=Kv, width=maxT + cap)
+        kw.update(Kv=Kv, width=rowT if edge == "edges" else win + cap)
         fn, plain = verify_ops.tf_rows_padded, verify_ops._tf_padded_plain
         name = "tf_rows_padded"
     elif kernel == "flat":
         args = (t(cells), t(offs[ids]), t(row_lens), ndl_t, nlen_t)
-        kw.update(Kv=Kv, win=maxT)
+        kw.update(Kv=Kv, win=win)
         fn, plain = verify_ops.tf_rows_flat, verify_ops._tf_flat_plain
         name = "tf_rows_flat"
     else:
-        owner = t(g.integers(0, B, B * Kv).astype(np.int32))
-        live = t(np.asarray([B * Kv - 137], dtype=np.int32))  # dead suffix
+        owner = t(g.integers(0, B, M).astype(np.int32))
+        live = t(np.asarray([M - M // 7], dtype=np.int32))  # dead suffix
         args = (t(cells), t(offs[ids]), t(row_lens), owner, live, ndl_t,
                 nlen_t)
-        kw.update(win=maxT)
+        kw.update(win=win)
         fn = verify_ops.tf_rows_flat_global
         plain = verify_ops._tf_flat_global_plain
         name = "tf_rows_flat_global"
@@ -240,20 +281,26 @@ def test_tf_rows_match_plain(kernel, u32, nonoverlap, use_range, cap, Nn):
     assert runtime.launches[name] == before + 1
     assert torch.equal(got, want)
     assert int(got[:, :Nn].sum()) > 0
+    if edge == "runs":
+        assert int(got[:, :Nn].max()) > 32
+    if edge == "long_docs" and kernel == "padded":
+        assert int(got[:, Nn].max()) == win + cap  # doc_len cut at width
 
 
+@pytest.mark.parametrize("maxT", [1024, 2048])
 @pytest.mark.parametrize("u32", [False, True])
 @pytest.mark.parametrize("nonoverlap", [False, True])
 @pytest.mark.parametrize("use_range", [False, True])
 @pytest.mark.parametrize("cap,Nn", [(4, 2), (32, 4)])
-def test_tf_rows_padded_store_call_matches_plain(u32, nonoverlap, use_range,
-                                                 cap, Nn):
+def test_tf_rows_padded_store_call_matches_plain(maxT, u32, nonoverlap,
+                                                 use_range, cap, Nn):
     """K6 as the text store calls it: one needle set over a full chunk of
-    sorted candidate ids, whole rows of a matrix with maxT 1024."""
+    sorted candidate ids, whole rows of a matrix with maxT 1024 (the
+    verified serve's) or 2048 (with u32 cells, the largest shared-memory
+    slice the kernel stages)."""
     require_cuda()
     from mygramdb_tpu_torch.storage.device_text import (_C_CHUNK,
                                                         _pad_on_device)
-    maxT = 1024
     flat, offs, lens = text_pack(u32, N=_C_CHUNK + 5000, maxT=maxT)
     ndl, nlen = needle_table(flat, offs, lens, 1, Nn, cap,
                              clamp_cell=use_range and not u32)
@@ -296,6 +343,9 @@ def test_tf_rows_refuse_bad_inputs():
     with pytest.raises(KernelError, match="shared memory"):
         verify_ops.tf_rows_flat(cells, starts, lens, ndl, nlen, Kv=4,
                                 cap=4, win=20000, use_range=False)
+    with pytest.raises(KernelError, match="16-byte aligned"):  # a view
+        verify_ops.tf_rows_flat(cells[1:], starts, lens, ndl, nlen, Kv=4,
+                                cap=4, win=8, use_range=False)
 
 
 def test_verified_search_on_cuda_matches_cpu():

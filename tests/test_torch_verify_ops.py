@@ -348,6 +348,134 @@ def test_flat_global_equals_jax(u32, use_range):
 
 
 # ---------------------------------------------------------------------------
+# The shapes at which the card's warp-per-row kernel differs in how it loads
+# ---------------------------------------------------------------------------
+
+def needles_from(rng, flat, starts, lens, B, Nn, cap, max_len=6):
+    """(B, Nn, CAP) needles cut from random documents of the pack, lengths
+    1..min(cap, max_len), and their lengths."""
+    ndl = np.zeros((B, Nn, J.NEEDLE_CAP), dtype=np.uint32)
+    nlens = np.zeros((B, Nn), dtype=np.int32)
+    for b in range(B):
+        for j in range(Nn):
+            L = int(rng.integers(1, min(cap, max_len) + 1))
+            d = int(rng.choice(np.flatnonzero(lens >= L)))
+            p = int(starts[d] + rng.integers(0, lens[d] - L + 1))
+            ndl[b, j, :L] = flat[p:p + L]
+            nlens[b, j] = L
+    return ndl, nlens
+
+
+@pytest.mark.parametrize("u32", [False, True])
+@pytest.mark.parametrize("use_range", [True, False])
+def test_flat_unaligned_starts_and_pack_end_equal_jax(u32, use_range):
+    """Flat rows that start off a 16-byte boundary (offset % 8 in a u16
+    pack, % 4 in a u32 pack), the pack's last document, whose window runs
+    past the pack's last cell, and dead rows between live ones; a window of
+    150, a multiple of neither 32 nor 8."""
+    rng = np.random.default_rng(21 + u32)
+    flat, starts, lens = random_pack(rng, u32, maxT=150)
+    tail = flat[:97].copy()                     # a last document of 97
+    flat = np.concatenate([flat, tail])
+    starts = np.append(starts, flat.size - tail.size)
+    lens = np.append(lens, np.int32(tail.size)).astype(np.int32)
+    per_vec = 16 // flat.itemsize
+    off_edge = np.flatnonzero((starts % per_vec != 0) & (lens > 0))
+    B, Kv, cap, Nn, win = 2, 2 * R, 4, 2, 150
+    M = B * Kv
+    ids = off_edge[rng.integers(0, off_edge.size, M)]
+    ids[::5] = lens.size - 1
+    row_lens = np.where(np.arange(M) % 3 != 1, lens[ids], 0)
+    ndl, nlens = needles_from(rng, flat, starts, lens, B, Nn, cap)
+    kw = dict(Kv=Kv, cap=cap, win=win, use_range=use_range)
+    got = port_flat(flat, starts[ids], row_lens, ndl, nlens, **kw)
+    want = jax_flat(flat, starts[ids], row_lens, ndl, nlens, **kw)
+    assert np.array_equal(got, want)
+    assert got[:, :Nn].sum() > 0 and not got[1::3].any()
+    assert (got[::5, Nn][row_lens[::5] > 0] == tail.size).all()
+
+
+@pytest.mark.parametrize("u32", [False, True])
+@pytest.mark.parametrize("use_range", [True, False])
+def test_padded_prefix_of_long_documents_equal_jax(u32, use_range):
+    """A prefix width < rowT over documents longer than it: cells at or
+    past width count neither in doc_len nor as a match, and a needle that
+    straddles width never matches there. The JAX kernel's block rule asks
+    for rowT and width multiples of 128 and N a multiple of 8, so the
+    shapes are N 64, rowT 384, width 128."""
+    rng = np.random.default_rng(31 + u32)
+    N, rowT, W, cap = 64, 384, 128, 4
+    dt = np.uint32 if u32 else np.uint16
+    alphabet = np.asarray([0x61, 0x62, 0x4E00] + ([0x1F600] if u32 else []))
+    lens = rng.integers(1, rowT - J.NEEDLE_CAP, N).astype(np.int32)
+    lens[::2] = rng.integers(W + 1, rowT - J.NEEDLE_CAP, N // 2)
+    padded = np.full((N, rowT), 0xFFFFFFFF if u32 else 0xFFFF, dtype=dt)
+    for i in range(N):
+        padded[i, :lens[i]] = alphabet[rng.integers(0, alphabet.size,
+                                                    lens[i])]
+    ids = rng.integers(0, N, 2 * R).astype(np.int32)
+    long_row = ids[np.flatnonzero(lens[ids] > W)[0]]
+    ndl = np.zeros((1, 2, J.NEEDLE_CAP), dtype=np.uint32)
+    ndl[0, 0, :2] = padded[ids[0], :2]
+    ndl[0, 1, :3] = padded[long_row, W - 2:W + 1]   # straddles width
+    nlens = np.asarray([[2, 3]], dtype=np.int32)
+    want = np.asarray(J.tf_rows_pallas(
+        jnp.asarray(padded), jnp.asarray(ids),
+        J.cast_needles_i32(jnp.asarray(ndl), jnp.asarray(padded).dtype, cap),
+        jnp.asarray(nlens), Kv=2 * R, Nn=2, cap=cap, use_range=use_range,
+        width=W, interpret=True))
+    got = T.tf_rows_padded(
+        cells_of(padded), t64(ids), t32(lens[ids]),
+        t32(T.cast_needles_i32(ndl, dt, cap)), t32(nlens), Kv=2 * R,
+        cap=cap, width=W, use_range=use_range).numpy()
+    assert np.array_equal(got, want)
+    assert got[:, 0].sum() > 0
+    assert (got[:, 2] == np.minimum(lens[ids], W)).all()
+
+
+@pytest.mark.parametrize("u32", [False, True])
+@pytest.mark.parametrize("use_range", [True, False])
+def test_flat_runs_past_32_hits_equal_jax(u32, use_range):
+    """Documents that are runs of one code point, broken every 50 cells,
+    and needles of 2-3 cells of the run: more than 32 hits a row, so the
+    kernel's 32-start flag words chain. The all-starts count equals
+    ``tf_rows_flat_pallas``; the leftmost-greedy count, a mode no Pallas
+    kernel has, equals the JAX package's ``tf_matrix_nonoverlap`` over the
+    same windows."""
+    rng = np.random.default_rng(41 + u32)
+    a, b = (0x1F600, 0x61) if u32 else (0x61, 0x62)
+    dt = np.uint32 if u32 else np.uint16
+    N, win, cap, Nn = 40, 200, 4, 2
+    lens = rng.integers(60, win + 1, N).astype(np.int32)
+    starts = np.zeros(N, dtype=np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    flat = np.where(np.arange(int(lens.sum())) % 50 == 49, b, a).astype(dt)
+    ndl = np.zeros((1, Nn, J.NEEDLE_CAP), dtype=np.uint32)
+    ndl[0, 0, :2] = a
+    ndl[0, 1, :3] = [a, a, a]
+    nlens = np.asarray([[2, 3]], dtype=np.int32)
+    Kv = 2 * R
+    ids = rng.integers(0, N, Kv)
+    kw = dict(Kv=Kv, cap=cap, win=win, use_range=use_range)
+    got = port_flat(flat, starts[ids], lens[ids], ndl, nlens, **kw)
+    assert np.array_equal(got, jax_flat(flat, starts[ids], lens[ids], ndl,
+                                        nlens, **kw))
+    assert got[:, 0].max() > 32
+    sent = 0xFFFFFFFF if u32 else 0xFFFF
+    text = np.full((Kv, win + cap), sent, dtype=dt)
+    for r, d in enumerate(ids):
+        n = min(int(lens[d]), win + cap)
+        text[r, :n] = flat[starts[d]:starts[d] + n]
+    want = np.asarray(J.tf_matrix_nonoverlap(
+        jnp.asarray(text), jnp.asarray(lens[ids]), jnp.asarray(ndl[0]),
+        jnp.asarray(nlens[0]), win, Nn, cap, use_range))
+    greedy = port_flat(flat, starts[ids], lens[ids], ndl, nlens,
+                       nonoverlap=True, **kw)
+    assert np.array_equal(greedy[:, :Nn], want)
+    assert greedy[:, 0].max() > 32 and (greedy[:, 0] < got[:, 0]).all()
+
+
+# ---------------------------------------------------------------------------
 # The non-overlapping mode and the XLA-path functions
 # ---------------------------------------------------------------------------
 
