@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``mygramdb_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--docs N] [--seed S] [--profile PATH]
+    python3 chip_smoke.py --kernel-timing
 
 Phases, each printing one JSON line with its seconds:
 
@@ -12,15 +13,21 @@ Phases, each printing one JSON line with its seconds:
    the shapes the serving path gives it, exact equality (integer work),
    both timed with CUDA events, beside the least time the card could take
    (bytes over 3.35 TB/s or 32-bit operations over 67 T/s, whichever is
-   larger). K1 row-AND, K2 row reduce (AND and OR), K3 slice gather; K4
+   larger). K1 row-AND with the top-n fused in (count only, the batcher's
+   descending page, the fused program's ascending candidates, and the
+   result words), then the dense program as the micro-batcher runs it at
+   B=1 K=3 n=128 and B=64 K=8 n=1,024, and the words at B=64 K=8, each
+   with its device time and its kernel count from torch.profiler; K2 row
+   reduce (AND and OR), K3 slice gather; K4
    flat-pack, K5 live-prefix and K6 padded-matrix window TF, on u16 and
    u32 packs, both count modes, with and without the range mask, cap 4
    and 32, 2 and 4 needles; K6 over a matrix of the verified serve's row
    width at the fused program's shape and at the text store's own (whole
    rows of a 65,536-candidate chunk), each timed shape with its share of
    the bound; P1 row gather over a matrix of the verified serve's size,
-   timed in ten alternating pairs with ``torch.index_select``. Then the
-   probe ``mygramdb_tpu_torch.tools.profile_gather`` (P1's own path).
+   timed in ten alternating pairs with ``torch.index_select``, device
+   times beside them. Then the probe
+   ``mygramdb_tpu_torch.tools.profile_gather`` (P1's own path).
 4. verified serve: the server's own entry points (``Application`` with a
    seed file, ``TcpServer``) at --docs documents of the synthetic EN+JA
    corpus with ``memory.verify_text: all`` and the auto text layout (the
@@ -44,6 +51,11 @@ Phases, each printing one JSON line with its seconds:
    serve, on the same server, each query class alone at 1 and 64
    connections, then ``torch.profiler`` over mixed queries (all lines
    also appended to PATH, tagged with the serve).
+
+With --kernel-timing the script only builds the kernels and times K1's
+dense program and P1, through entry points that every tree of the port
+has: a copy of it placed in an older tree's checkout times that tree, so
+two trees are compared in one call (parent, change, change, parent).
 
 Each serve phase sets the kernels' launch counters and the route counters
 to 0 just before its queries and reads them just after. The last lines
@@ -183,6 +195,26 @@ def device_ms(fn, kernel: str, reps: int = 20):
     return sum(dev_us(e) for e in hits) / seen / 1e3 if seen else None
 
 
+def device_profile(fn, reps: int = 20) -> dict:
+    """The device work of one fn() call under torch.profiler, over reps
+    back-to-back calls: "device_ms", the summed device time of its kernels;
+    "kernels", kernels launched a call (copies and memsets not counted);
+    "by_kernel", device ms a call by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if dev_us(e) > 0
+          and not e.key.startswith(("Memcpy", "Memset"))]
+    return {"device_ms": sum(dev_us(e) for e in ev) / reps / 1e3,
+            "kernels": sum(e.count for e in ev) / reps,
+            "by_kernel": {e.key[:60]: dev_us(e) / reps / 1e3 for e in ev}}
+
+
 def kernel_phase(gen):
     """K1 and K3 -> {kernel name: {"max_abs_err", "ms", "plain_ms",
     "bound_ms", "bound_by", "shape"}}; raises on a mismatch. ms/plain_ms
@@ -230,20 +262,23 @@ def kernel_phase(gen):
                               f"K1 disagrees: W={W} B={B} K={K} "
                               f"not={has_not} extra={has_extra}")
                         err = max(err, int((c - cp).abs().max()))
+                        # the top-n forms: count only, the batcher's
+                        # descending page, the fused candidates ascending
+                        for n, desc in ((0, False), (128, True),
+                                        (4096, False)):
+                            o, _ = bitmap_ops.dense_and_topn(*args, n, desc)
+                            op, _ = bitmap_ops._dense_and_topn_plain(
+                                *args, n, desc)
+                            torch.cuda.synchronize()
+                            check(torch.equal(o, op),
+                                  f"K1 top-n disagrees: W={W} B={B} K={K} "
+                                  f"not={has_not} extra={has_extra} n={n} "
+                                  f"desc={desc}")
+                            err = max(err, int((o.long() - op.long())
+                                               .abs().max()))
                         rows_out.append((W, B, K, has_not, has_extra,
                                          int(c.sum())))
-        if W == 34816:
-            B, K = 64, 8
-            rows8 = torch.randint(0, V, (B, K), dtype=torch.int32,
-                                  generator=gen).to(dev)
-            args = (bm, rows8, None, None, deleted)
-            ms = cuda_ms(lambda: bitmap_ops.dense_and(*args))
-            plain_ms = cuda_ms(lambda: bitmap_ops._dense_query_plain(*args))
-            distinct = int(torch.unique(rows8).numel())
-            k1_bound = bound(4 * (distinct * W + W + B * K + B * W + B),
-                             B * (K + 1) * W)
-    out["dense_and"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "shape": "B=64 K=8 W=34816", **k1_bound}
+    out["dense_and"] = {"max_abs_err": err}
     emit({"phase": "kernels", "kernel": "dense_and", "configs":
           len(rows_out), "nonzero_counts":
           sum(1 for r in rows_out if r[-1] > 0)})
@@ -285,6 +320,97 @@ def kernel_phase(gen):
                            **bound(4 * read + 4 * 64 * 2048 + 16 * 64, 0)}
     emit({"phase": "kernels", "kernel": "slice_gather", "buckets":
           [2048, 65536]})
+    return out
+
+
+def dense_topn_phase(gen) -> dict:
+    """K1 as the serving path calls it, at W = 34,816 (1.1M documents)
+    over 96 random dense rows: the micro-batcher's dense program (host row
+    ids to the card, ``dense_search_topn_packed``, numpy back) at B=1 K=3
+    n=128 and B=64 K=8 n=1,024 descending, and the result words
+    (``dense_and``) at B=64 K=8. For each: exact against the plain version
+    (``_dense_query_plain`` then ``topn_words``), "ms" the device program
+    event-timed (the wrapper's host path included), "device_ms" and
+    "kernels" a call from torch.profiler, "call_ms" and "call_kernels" the
+    whole packed call with its copies and its pull, and the bound: each
+    distinct row and the tombstones read once, the answer written once.
+    Only entry points that every tree of the port has are called, so the
+    same function times an older tree's dense program.
+    -> {shape name: numbers}."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.ops import bitmap_ops, runtime
+    dev = torch.device("cuda")
+    V, W = 96, 34816
+    bm = words_on_card(gen, V, W)
+    deleted = torch.zeros(W, dtype=torch.int32)
+    deleted[torch.randint(0, W, (W // 50,), generator=gen)] = -1
+    deleted = deleted.to(dev)
+    ones = bm[V][None]  # DeviceIndex._pack_extra([]): the AND identity
+    out = {}
+    for B, K, n in ((1, 3, 128), (64, 8, 1024)):
+        rows = torch.randint(0, V, (B, K), dtype=torch.int32,
+                             generator=gen).numpy()
+        nrows = np.full((B, 1), V + 1, dtype=np.int32)
+        rows_t, nrows_t = (runtime.to_device(rows, dev),
+                           runtime.to_device(nrows, dev))
+
+        def call():  # MicroBatcher._execute_dense
+            return bitmap_ops.dense_search_topn_packed(
+                bm, runtime.to_device(rows, dev),
+                runtime.to_device(nrows, dev), deleted, ones, False, False,
+                n, True)
+
+        def program():
+            return bitmap_ops._dense_search_topn(
+                bm, rows_t, nrows_t, deleted, ones, False, False, n, True)
+
+        cnt, ids = call()
+        c_p, res_p = bitmap_ops._dense_query_plain(bm, rows_t, None, None,
+                                                   deleted)
+        ids_p = bitmap_ops.topn_words(res_p, n, True)
+        check(np.array_equal(cnt, c_p.cpu().numpy())
+              and np.array_equal(ids, ids_p.cpu().numpy()),
+              f"K1 top-n disagrees at B={B} K={K} n={n}")
+        check(int(cnt.min()) > n, f"K1 top-n: a count below n={n}")
+        distinct = len(np.unique(rows))
+        prof = device_profile(program)
+        whole = device_profile(call)
+        out[f"topn B={B}"] = {
+            "ms": cuda_ms(program), "call_ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda: bitmap_ops.topn_words(
+                bitmap_ops._dense_query_plain(bm, rows_t, None, None,
+                                              deleted)[1], n, True), reps=5),
+            "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+            "by_kernel": prof["by_kernel"],
+            "call_kernels": whole["kernels"],
+            "shape": f"B={B} K={K} W={W} n={n} descending",
+            **bound(4 * ((distinct + 1) * W + B * K + B * (n + 1)),
+                    B * (K + 1) * W)}
+    B, K = 64, 8
+    rows_t = torch.randint(0, V, (B, K), dtype=torch.int32,
+                           generator=gen).to(dev)
+    c, r = bitmap_ops.dense_and(bm, rows_t, None, None, deleted)
+    cp, rp = bitmap_ops._dense_query_plain(bm, rows_t, None, None, deleted)
+    torch.cuda.synchronize()
+    check(torch.equal(c, cp) and torch.equal(r, rp), "K1 words disagree")
+    distinct = int(torch.unique(rows_t).numel())
+    prof = device_profile(lambda: bitmap_ops.dense_and(bm, rows_t, None,
+                                                       None, deleted))
+    out["words B=64"] = {
+        "ms": cuda_ms(lambda: bitmap_ops.dense_and(bm, rows_t, None, None,
+                                                   deleted)),
+        "plain_ms": cuda_ms(lambda: bitmap_ops._dense_query_plain(
+            bm, rows_t, None, None, deleted), reps=5),
+        "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+        "by_kernel": prof["by_kernel"],
+        "shape": f"B={B} K={K} W={W} words",
+        **bound(4 * ((distinct + 1) * W + B * K + B * W + B),
+                B * (K + 1) * W)}
+    for v in out.values():
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
+        v["device_share_of_bound"] = v["bound_ms"] / v["device_ms"]
+    emit({"phase": "kernels", "kernel": "dense_and (K1)", "timed": out})
     return out
 
 
@@ -384,15 +510,25 @@ def row_gather_phase(gen) -> dict:
     pairs = [(cuda_ms(lambda: pg.gather_rows(padded, ids)),
               cuda_ms(lambda: torch.index_select(padded, 0, ids)))
              for _ in range(10)]
+    dev_pairs = [(device_ms(lambda: pg.gather_rows(padded, ids),
+                            "gather_rows"),
+                  device_profile(lambda: torch.index_select(padded, 0, ids)
+                                 )["device_ms"])
+                 for _ in range(3)]
     out = {"max_abs_err": err,
            "ms": statistics.median(p for p, _ in pairs),
+           "device_ms": statistics.median(p for p, _ in dev_pairs),
            "plain_ms": cuda_ms(lambda: pg._gather_rows_plain(padded, ids)),
            "library_ms": statistics.median(lib for _, lib in pairs),
+           "library_device_ms": statistics.median(lib for _, lib in dev_pairs),
            "shape": f"N={N} rowT={rowT} u16 R={R}",
            **bound(row_bytes * (distinct + R) + 4 * R, 0)}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["device_share_of_bound"] = out["bound_ms"] / out["device_ms"]
     emit({"phase": "kernels", "kernel": "row_gather (P1)", "timed": out,
-          "pairs_ms": pairs,
-          "kernel_faster_in": sum(p < lib for p, lib in pairs)})
+          "pairs_ms": pairs, "device_pairs_ms": dev_pairs,
+          "kernel_faster_in": sum(p < lib for p, lib in pairs),
+          "kernel_faster_on_device_in": sum(p < lib for p, lib in dev_pairs)})
     return out
 
 
@@ -1456,6 +1592,9 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
             # FILTER queries ride K1 as filter rows
             check(forms["dense_and.extra_rows"] > 0,
                   f"no K1 launch carried filter rows: {forms}")
+            # dense SEARCHes take their ids from K1 itself
+            check(forms["dense_and.topn"] > 0,
+                  f"no K1 launch took the top-n: {forms}")
             check(avg_batch > 1,
                   f"micro-batcher average batch {avg_batch} <= 1")
         summary["host_max_rss_gb"] = resource.getrusage(
@@ -1566,6 +1705,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default="", metavar="PATH",
                     help="after the verified and the unverified serve, "
                          "profile each query class; rows go to PATH")
+    ap.add_argument("--kernel-timing", action="store_true",
+                    help="only build the kernels and time K1's dense "
+                         "program and P1 (entry points every tree of the "
+                         "port has, so a copy of this script times an "
+                         "older tree beside it); prints no result line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1598,8 +1742,16 @@ def main(argv=None) -> int:
               "ptxas": [ln.strip() for ln in runtime.build_log.splitlines()
                         if "registers" in ln or "Compiling entry" in ln]})
         gen = torch.Generator().manual_seed(args.seed)
+        if args.kernel_timing:
+            emit({"phase": "kernel_timing", "card": card,
+                  "dense_and": dense_topn_phase(gen),
+                  "row_gather": row_gather_phase(gen)})
+            return 0
         t0 = time.time()
         timings = kernel_phase(gen)
+        k1 = dense_topn_phase(gen)
+        # K1's line: the micro-batcher's batched program
+        timings["dense_and"].update(k1["topn B=64"])
         k2_at_k1_shape = reduce_rows_phase(gen)
         timings.update(verify_kernel_phase(gen, args.docs))
         timings["row_gather"] = row_gather_phase(gen)
@@ -1661,6 +1813,7 @@ def main(argv=None) -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t.get("library_ms"),
+                     "device_ms": t.get("device_ms"),
                      "shape": t["shape"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

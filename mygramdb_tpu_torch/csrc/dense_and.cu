@@ -1,36 +1,66 @@
-// K1: dense row-AND with NOT rows, filter rows, tombstones and popcount;
-// K2 (below it): the bare row reduce, AND or OR, with nothing folded in.
+// K1: dense row-AND with NOT rows, filter rows, tombstones, popcount and
+// the first n matching doc ids, in one kernel; K2 (below it): the bare row
+// reduce, AND or OR, with nothing folded in.
 //
 // K1
 // --
 // Replaces mygramdb_tpu/ops/bitmap_ops.py::dense_query_pallas (kernels
 // _dense_query_kernel_kop, _dense_query_kernel, _dense_query_kernel_blocked)
+// and the top-n that follows it there (_topn_hierarchical, an XLA program),
 // and folds in the NOT and filter forms that the JAX package sends to
-// bitmap_ops.py::dense_query instead. For each query b and word w:
+// bitmap_ops.py::dense_query instead. For each query b:
 //
 //   res[b, w] = AND_k bm[rows[b, k], w]  &  ~OR_j bm[nrows[b, j], w]
 //               & AND_f extra[f, w]  &  ~deleted[w]
-//   count[b]  = popcount(res[b, :])
+//   out[b, 0] = popcount(res[b, :])
+//   out[b, 1 + r] = the doc id of the r-th set bit of res[b] in doc-id
+//                   order (largest first when descending), r < n; -1 past
+//                   the count
 //
 // Words are uint32 bit patterns (doc d = bit d % 32 of word d / 32); torch
-// holds them as int32.
+// holds them as int32. res is written only when the caller asks for it.
 //
-// What bounds it: device-memory bytes. It reads B * (K + Kn + F + 1) * W * 4
-// bytes and writes B * W * 4; the AND and popcount are a few integer
-// operations per 16 bytes. So each thread moves 16 bytes (uint4) per row,
-// neighbouring threads on neighbouring addresses, and reduces in registers;
-// the block keeps its query's row ids in shared memory. The TPU variants
-// differ only in how a row is tiled into VMEM; there is no such limit here,
-// so one kernel covers every K and every W that is a multiple of 4 words
-// (DeviceIndex pads W to 1024). Counts meet in one atomicAdd per
-// warp into count[b], which the caller zeroes.
+// What bounds it: device-memory bytes, each distinct row read once ((rows +
+// 1) x W x 4 bytes over the batch; a row that queries share comes again
+// from the L2 cache) and B x (n + 1) x 4 written. The AND and the popcount
+// are a few integer operations per 16 bytes.
+//
+// Design: one thread-block cluster of CS blocks (8, or 16 where the card
+// allows it) a query; block c owns a contiguous span of about W / CS words.
+// - Pass 1: each thread ANDs 16-byte vectors of its block's span, the
+//   query's row ids in shared memory, stages the result words in dynamic
+//   shared memory (17 KB a block at W = 34,816 over 8 blocks, 77 KB at
+//   313,344 over 16) and popcounts them; the block sums its count.
+// - The cross-block rank: after a cluster barrier, lane c of warp 0 reads
+//   block c's count through distributed shared memory; the counts of the
+//   blocks before this one in direction order are its rank offset, and
+//   their sum over the cluster is count[b]. No memset, no atomics.
+// - Pass 2: in rounds of one vector a thread, in direction order, a block
+//   scan of the vectors' popcounts gives each set bit its rank; ranks below
+//   n write their doc id straight into out[b, 1 + rank]. A block stops at
+//   the round that reaches n or its own last set bit, and a block whose
+//   offset is past n skips the pass. Ranks from the count to n are written
+//   as -1 by the whole cluster.
+// - n = 0 counts only. A span too large for shared memory (W past some 28M
+//   documents) is not staged: pass 2 recomputes its words.
+// - Queries past the grid's y limit loop inside the cluster.
+// The TPU kernel's tiling of a row into VMEM, and the two XLA select
+// stages of the top-n, have no counterpart: one read of the rows, one
+// write of the answer.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // K2
+constexpr int kTopnThreads = 256;   // K1
+constexpr int kTopnWarps = kTopnThreads / 32;
 
 __device__ __forceinline__ uint4 band(uint4 a, uint4 b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
@@ -41,45 +71,174 @@ __device__ __forceinline__ uint4 bor(uint4 a, uint4 b) {
 __device__ __forceinline__ uint4 bandnot(uint4 a, uint4 b) {
   return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
 }
+__device__ __forceinline__ int popc4(uint4 a) {
+  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
+}
 
-// wv: row width in uint4 units (W / 4). grid (ceil(wv / kThreads),
-// min(B, 65535)).
-__global__ void __launch_bounds__(kThreads)
-dense_and_kernel(const uint4* __restrict__ bm, int64_t wv,
-                 const int32_t* __restrict__ rows, int K,
-                 const int32_t* __restrict__ nrows, int Kn,
-                 const uint4* __restrict__ extra, int F,
-                 const uint4* __restrict__ deleted,
-                 int32_t* __restrict__ count, uint4* __restrict__ res, int B) {
-  extern __shared__ int32_t s_rows[];  // K row ids, then Kn NOT row ids
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ int warp_sum(int x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The query's result vector w: s_rows holds its K row ids, then its Kn NOT
+// row ids.
+__device__ __forceinline__ uint4 result_vec(
+    const uint4* __restrict__ bm, int64_t wv, const int32_t* s_rows, int K,
+    int Kn, const uint4* __restrict__ extra, int F,
+    const uint4* __restrict__ deleted, int64_t w) {
+  uint4 acc = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int k = 0; k < K; ++k)
+    acc = band(acc, __ldg(bm + (int64_t)s_rows[k] * wv + w));
+  if (Kn > 0) {
+    uint4 nacc = make_uint4(0u, 0u, 0u, 0u);
+    for (int k = 0; k < Kn; ++k)
+      nacc = bor(nacc, __ldg(bm + (int64_t)s_rows[K + k] * wv + w));
+    acc = bandnot(acc, nacc);
+  }
+  for (int f = 0; f < F; ++f)
+    acc = band(acc, __ldg(extra + (int64_t)f * wv + w));
+  return bandnot(acc, __ldg(deleted + w));
+}
+
+// Doc ids of the set bits of v (words word0 .. word0 + 3) in direction
+// order, from rank on, while rank < n.
+template <bool kDescending>
+__device__ __forceinline__ void write_ids(int32_t* __restrict__ ids, uint4 v,
+                                          int64_t word0, int rank, int n) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = kDescending ? 3 - i : i;
+    uint32_t x = w[j];
+    const int32_t base = (int32_t)((word0 + j) * 32);
+    while (x != 0u && rank < n) {
+      const int bit = kDescending ? 31 - __clz(x) : __ffs(x) - 1;
+      ids[rank++] = base + bit;
+      x &= ~(1u << bit);
+    }
+  }
+}
+
+// grid (CS, min(B, 65535)), clusters of (CS, 1, 1). span: vectors a block
+// owns; staged: the dynamic shared memory holds span vectors before the
+// row ids. out (B, n + 1); res (B, W) or null.
+__global__ void __launch_bounds__(kTopnThreads)
+dense_and_topn_kernel(const uint4* __restrict__ bm, int64_t wv,
+                      const int32_t* __restrict__ rows, int K,
+                      const int32_t* __restrict__ nrows, int Kn,
+                      const uint4* __restrict__ extra, int F,
+                      const uint4* __restrict__ deleted,
+                      int32_t* __restrict__ out, int n, int descending,
+                      uint4* __restrict__ res, int B, int64_t span,
+                      int staged) {
+  extern __shared__ uint4 s_dyn[];
+  __shared__ int s_warp[kTopnWarps];
+  __shared__ int s_total[2];                   // by query parity
+  __shared__ int s_scan[2][kTopnWarps + 1];    // by round parity
+  __shared__ int s_off, s_count;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks();
+  const int crank = (int)cluster.block_rank();
+  uint4* s_words = s_dyn;
+  int32_t* s_rows = reinterpret_cast<int32_t*>(s_dyn + (staged ? span : 0));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t lo = (int64_t)crank * span;
+  const int64_t len = lo < wv ? (wv - lo < span ? wv - lo : span) : 0;
+  int qpar = 0, rpar = 0;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    __syncthreads();  // the previous query's row ids are no longer read
-    for (int i = threadIdx.x; i < K; i += blockDim.x)
+    __syncthreads();  // the previous query's rows and words are not read
+    for (int i = tid; i < K; i += kTopnThreads)
       s_rows[i] = rows[(int64_t)b * K + i];
-    for (int i = threadIdx.x; i < Kn; i += blockDim.x)
+    for (int i = tid; i < Kn; i += kTopnThreads)
       s_rows[K + i] = nrows[(int64_t)b * Kn + i];
     __syncthreads();
+
+    // pass 1: the words, staged, and the block's count
     int pc = 0;
-    if (w < wv) {
-      uint4 acc = make_uint4(~0u, ~0u, ~0u, ~0u);
-      for (int k = 0; k < K; ++k)
-        acc = band(acc, __ldg(bm + (int64_t)s_rows[k] * wv + w));
-      if (Kn > 0) {
-        uint4 nacc = make_uint4(0u, 0u, 0u, 0u);
-        for (int k = 0; k < Kn; ++k)
-          nacc = bor(nacc, __ldg(bm + (int64_t)s_rows[K + k] * wv + w));
-        acc = bandnot(acc, nacc);
-      }
-      for (int f = 0; f < F; ++f)
-        acc = band(acc, __ldg(extra + (int64_t)f * wv + w));
-      acc = bandnot(acc, __ldg(deleted + w));
-      res[(int64_t)b * wv + w] = acc;
-      pc = __popc(acc.x) + __popc(acc.y) + __popc(acc.z) + __popc(acc.w);
+    for (int64_t v = tid; v < len; v += kTopnThreads) {
+      const uint4 acc = result_vec(bm, wv, s_rows, K, Kn, extra, F, deleted,
+                                   lo + v);
+      if (res != nullptr) res[(int64_t)b * wv + lo + v] = acc;
+      if (staged) s_words[v] = acc;
+      pc += popc4(acc);
     }
-    for (int o = 16; o > 0; o >>= 1) pc += __shfl_down_sync(0xFFFFFFFFu, pc, o);
-    if ((threadIdx.x & 31) == 0 && pc != 0) atomicAdd(count + b, pc);
+    pc = warp_sum(pc);
+    if (lane == 0) s_warp[warp] = pc;
+    __syncthreads();
+    if (tid == 0) {
+      int t = 0;
+      for (int i = 0; i < kTopnWarps; ++i) t += s_warp[i];
+      s_total[qpar] = t;
+    }
+    cluster.sync();
+
+    // the rank offset of this block's first bit, and the query's count
+    if (warp == 0) {
+      const int t = lane < CS ? *cluster.map_shared_rank(&s_total[qpar], lane)
+                              : 0;
+      const bool before = descending ? lane > crank : lane < crank;
+      const int off = warp_sum(before ? t : 0);
+      const int cnt = warp_sum(t);
+      if (lane == 0) {
+        s_off = off;
+        s_count = cnt;
+      }
+    }
+    __syncthreads();
+    const int count = s_count;
+    const int off = s_off;
+    const int end = n < off + s_total[qpar] ? n : off + s_total[qpar];
+    qpar ^= 1;
+    int32_t* o = out + (int64_t)b * (n + 1);
+    if (crank == 0 && tid == 0) o[0] = count;
+    for (int64_t r = (int64_t)count + (int64_t)crank * kTopnThreads + tid;
+         r < n; r += (int64_t)CS * kTopnThreads)
+      o[1 + r] = -1;
+
+    // pass 2: rounds of one vector a thread in direction order; ranks
+    // below n write their doc ids, until the block's last bit
+    int base = off;
+    for (int64_t r0 = 0; r0 < len && base < end; r0 += kTopnThreads) {
+      const int64_t vd = r0 + tid;  // direction order within the span
+      int64_t v = 0;
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      if (vd < len) {
+        v = descending ? len - 1 - vd : vd;
+        acc = staged ? s_words[v]
+                     : result_vec(bm, wv, s_rows, K, Kn, extra, F, deleted,
+                                  lo + v);
+      }
+      const int p = popc4(acc);
+      const int incl = warp_inclusive_scan(p, lane);
+      if (lane == 31) s_scan[rpar][warp] = incl;
+      __syncthreads();
+      if (warp == 0) {
+        const int x = lane < kTopnWarps ? s_scan[rpar][lane] : 0;
+        const int xi = warp_inclusive_scan(x, lane);
+        if (lane < kTopnWarps) s_scan[rpar][lane] = xi - x;
+        if (lane == 31) s_scan[rpar][kTopnWarps] = xi;
+      }
+      __syncthreads();
+      const int rank = base + s_scan[rpar][warp] + incl - p;
+      if (p != 0 && rank < n) {
+        if (descending)
+          write_ids<true>(o + 1, acc, (lo + v) * 4, rank, n);
+        else
+          write_ids<false>(o + 1, acc, (lo + v) * 4, rank, n);
+      }
+      base += s_scan[rpar][kTopnWarps];
+      rpar ^= 1;
+    }
   }
+  cluster.sync();  // no block leaves while another reads its count
 }
 
 // K2: row gather + AND / OR reduce.
@@ -122,26 +281,109 @@ reduce_rows_kernel(const uint4* __restrict__ bm, int64_t wv,
   }
 }
 
+
+// Each device's set-up of K1: its SM count, the dynamic shared memory a
+// block may use (raised on the kernel), and whether a cluster of 16 blocks
+// launches there (a non-portable size).
+struct TopnSetup {
+  int sms;   // 0 until the device's first launch
+  int optin;
+  bool allow16;
+};
+
+PerDevice<TopnSetup> topn_setup;
+
+cudaError_t topn_limits(TopnSetup* out) {
+  return topn_setup.with([&](int dev, TopnSetup& s) {
+    if (s.sms == 0) {
+      int sms = 0, optin = 0, dynamic_max = 0;
+      cudaError_t e = device_limits(dev, &sms, &optin);
+      if (e == cudaSuccess)
+        e = raise_smem_limit(dense_and_topn_kernel, optin, &dynamic_max);
+      if (e != cudaSuccess) return e;
+      bool allow16 =
+          cudaFuncSetAttribute(dense_and_topn_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1) == cudaSuccess;
+      if (allow16) {
+        cudaLaunchConfig_t cfg = {};
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = 16;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.gridDim = dim3(16, 1, 1);
+        cfg.blockDim = dim3(kTopnThreads, 1, 1);
+        cfg.dynamicSmemBytes = (size_t)dynamic_max;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int clusters = 0;
+        allow16 = cudaOccupancyMaxActiveClusters(
+                      &clusters, dense_and_topn_kernel, &cfg) == cudaSuccess
+                  && clusters > 0;
+      }
+      cudaGetLastError();  // a refused size is an answer, not a fault
+      s.sms = sms;
+      s.optin = dynamic_max;
+      s.allow16 = allow16;
+    }
+    *out = s;
+    return cudaSuccess;
+  });
+}
+
 }  // namespace
 
-// bm (V, W), rows (B, K), nrows (B, Kn), extra (F, W), deleted (W,),
-// count (B,) zeroed by the caller, res (B, W); all int32, contiguous. W is a
-// multiple of 4 and bm, extra, deleted and res are 16-byte aligned (the
-// wrapper checks both). Returns cudaGetLastError() after the launch.
-extern "C" int mygram_dense_and(const void* bm, long long W, const void* rows,
-                                int K, const void* nrows, int Kn,
-                                const void* extra, int F, const void* deleted,
-                                void* count, void* res, int B, void* stream) {
-  if (B > 0 && W > 0) {
-    const int64_t wv = W / 4;
-    const unsigned gx = (unsigned)((wv + kThreads - 1) / kThreads);
-    const unsigned gy = (unsigned)(B < 65535 ? B : 65535);
-    const size_t smem = (size_t)(K + Kn) * sizeof(int32_t);
-    dense_and_kernel<<<dim3(gx, gy), kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint4*)bm, wv, (const int32_t*)rows, K, (const int32_t*)nrows,
-        Kn, (const uint4*)extra, F, (const uint4*)deleted, (int32_t*)count,
-        (uint4*)res, B);
-  }
+// bm (V, W), rows (B, K), nrows (B, Kn), extra (F, W), deleted (W,), out
+// (B, n + 1), res (B, W) or null; all int32, contiguous. W is a multiple of
+// 4 and bm, extra, deleted and res are 16-byte aligned (the wrapper checks
+// both). out[b] = [count, the first n doc ids in doc-id order (descending:
+// largest first), -1 padded]. Returns cudaGetLastError() after the launch
+// (or the set-up's error).
+extern "C" int mygram_dense_and_topn(const void* bm, long long W,
+                                     const void* rows, int K,
+                                     const void* nrows, int Kn,
+                                     const void* extra, int F,
+                                     const void* deleted, void* out, int n,
+                                     int descending, void* res, int B,
+                                     void* stream) {
+  if (B <= 0 || W <= 0) return (int)cudaGetLastError();
+  TopnSetup s;
+  cudaError_t e = topn_limits(&s);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t wv = W / 4;
+  const size_t row_bytes = (size_t)(K + Kn) * sizeof(int32_t);
+  const auto span_of = [&](int cs) { return (wv + cs - 1) / cs; };
+  const auto fits = [&](int cs) {
+    return (size_t)span_of(cs) * 16 + row_bytes <= (size_t)s.optin;
+  };
+  // 16 blocks a query where the batch alone would leave most SMs idle, or
+  // where 8 blocks could not stage their spans
+  const int CS =
+      s.allow16 && (B * 8 < 2 * s.sms || (n > 0 && !fits(8))) ? 16 : 8;
+  const int64_t span = span_of(CS);
+  const int staged = n > 0 && fits(CS);
+  const size_t smem = (staged ? (size_t)span * 16 : 0) + row_bytes;
+  if (smem > (size_t)s.optin) return (int)cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(CS, B < 65535 ? B : 65535, 1);
+  cfg.blockDim = dim3(kTopnThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, dense_and_topn_kernel, (const uint4*)bm, wv,
+      (const int32_t*)rows, K, (const int32_t*)nrows, Kn,
+      (const uint4*)extra, F, (const uint4*)deleted, (int32_t*)out, n,
+      descending, (uint4*)res, B, span, staged);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -69,7 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "per_device.cuh"
 
 namespace {
 
@@ -450,44 +450,42 @@ tf_rows_kernel(const T* __restrict__ text, int64_t text_len,
   }
 }
 
-// Blocks of tf_rows_kernel<T> that the card holds at once with smem bytes
-// of dynamic shared memory each (the card the process first launched on).
-// The last answer is kept, since consecutive calls mostly share a window.
+// Blocks of tf_rows_kernel<T> that the current device holds at once with
+// smem bytes of dynamic shared memory each. Each device keeps its SM count,
+// its raised shared-memory limit and the last answer (consecutive calls
+// mostly share a window).
+struct Resident {
+  int sms;       // 0 until the device's first launch set the attribute
+  size_t smem;   // the memo: blocks for smem bytes a block
+  int blocks;
+};
+
 template <typename T>
 cudaError_t resident_blocks(size_t smem, int* blocks) {
-  static int sms = 0;
-  static const cudaError_t setup = [] {
-    int dev, optin;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    // the most any launch may ask for; never lowered, so a launch never
-    // races another thread's setting
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(tf_rows_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-    return e;
-  }();
-  static std::atomic<unsigned long long> memo{0};  // smem << 32 | blocks
-  if (setup != cudaSuccess) return setup;
-  const unsigned long long m = memo.load(std::memory_order_relaxed);
-  if (m != 0 && (m >> 32) == smem) {
-    *blocks = (int)(m & 0xffffffffu);
+  static PerDevice<Resident> state;
+  return state.with([&](int dev, Resident& r) {
+    if (r.sms == 0) {
+      int sms = 0, optin = 0, dynamic_max = 0;
+      cudaError_t e = device_limits(dev, &sms, &optin);
+      // the most any launch may ask for; never lowered, so a launch never
+      // races another thread's setting
+      if (e == cudaSuccess)
+        e = raise_smem_limit(tf_rows_kernel<T>, optin, &dynamic_max);
+      if (e != cudaSuccess) return e;
+      r.sms = sms;
+    }
+    if (r.blocks == 0 || r.smem != smem) {
+      int per_sm = 0;
+      const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tf_rows_kernel<T>, kThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      r.smem = smem;
+      r.blocks = per_sm * r.sms;
+    }
+    *blocks = r.blocks;
     return cudaSuccess;
-  }
-  int per_sm = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tf_rows_kernel<T>, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = per_sm * sms;
-  memo.store(((unsigned long long)smem << 32) | (unsigned)*blocks,
-             std::memory_order_relaxed);
-  return cudaSuccess;
+  });
 }
 
 template <typename T>

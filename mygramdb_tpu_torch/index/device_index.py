@@ -407,19 +407,18 @@ class DeviceIndex:
         F = len(extra_words)
         rows_t = self._tensor([rows], torch.int32)
         nrows_t = self._tensor([nrows], torch.int32)
-        if not opts.count_only and opts.limit > 0:
-            n = min(_bucket_of(opts.limit, _LIMIT_BUCKETS),
-                    self.n_docs_capacity)
-            count, ids = bitmap_ops.dense_search_topn(
+        if opts.count_only or opts.limit > 0:
+            # one K1 launch: the count, and the first n ids (n = 0 counts)
+            n = 0 if opts.count_only else min(
+                _bucket_of(opts.limit, _LIMIT_BUCKETS), self.n_docs_capacity)
+            count, ids = bitmap_ops.dense_search_topn_packed(
                 self.bitmaps, rows_t, nrows_t, self.deleted, extra,
                 has_not, F > 0, n, opts.descending)
-            ids = ids[0].cpu().numpy()
+            ids = ids[0]
             return int(count[0]), ids[ids >= 0][:opts.limit].astype(np.int32)
         count, res = bitmap_ops.dense_query_auto(
             self.bitmaps, rows_t, nrows_t, self.deleted, extra,
             has_not=has_not, has_extra=F > 0)
-        if opts.count_only:
-            return int(count[0]), np.empty(0, dtype=np.int32)
         return int(count[0]), self._bitmap_to_ids(res[0].cpu().numpy())
 
     def _pack_extra(self, extra_words) -> torch.Tensor:

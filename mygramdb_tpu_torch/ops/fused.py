@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import runtime
-from .bitmap_ops import dense_and, topn_words
+from .bitmap_ops import dense_and_topn
 from .posting_ops import SENTINEL, mask_to_topn
 from .verify_ops import (bm25_scores, cast_needles_i32, needle_cap_bucket,
                          sort_by_score, tf_rows_flat, tf_rows_flat_global,
@@ -157,9 +157,11 @@ def _search_verify_topn_batch(bitmaps, rows, deleted, extra, store, ndl,
     K1 (with the filter rows ``extra`` (F, W) or None), the first C
     matching ids ascending become the candidates. -> (pre, count, ids,
     scores or None) tensors; pre > C means the extraction clipped."""
-    pre, res = dense_and(bitmaps, rows, None, extra, deleted)
-    cand = topn_words(res, C, False)
-    sel_all = torch.where(cand >= 0, cand, SENTINEL)[:, :min(Kv, C)]
+    # one K1 launch: the count and the first min(Kv, C) ids ascending
+    out, _ = dense_and_topn(bitmaps, rows, None, extra, deleted, min(Kv, C),
+                            False)
+    pre, cand = out[:, 0], out[:, 1:]
+    sel_all = torch.where(cand >= 0, cand, SENTINEL)
     count, ids, scores = _verify_stage(
         sel_all, store, ndl, nlen, idf, k1, b, avgdl, Kv=min(Kv, C), n=n,
         Nn=Nn, maxT=maxT, cap=cap, descending=descending,

@@ -63,10 +63,10 @@ def gather_slices(postings: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((K, bucket), dtype=torch.int32, device=postings.device)
     if K == 0 or bucket == 0:
         return out
-    err = runtime.kernels().mygram_slice_gather(
-        postings.data_ptr(), postings.shape[0], offsets.data_ptr(),
-        lengths.data_ptr(), K, bucket, out.data_ptr(),
-        runtime.stream_of(postings))
+    err = runtime.launch_on(
+        postings, runtime.kernels().mygram_slice_gather, postings.data_ptr(),
+        postings.shape[0], offsets.data_ptr(), lengths.data_ptr(), K, bucket,
+        out.data_ptr())
     runtime.check_launch(err, "slice_gather")
     return out
 

@@ -7,7 +7,8 @@
   ops layer, bumped at the same call sites as in the JAX package.
 - ``launches``: one plain integer per hand-written kernel, bumped by its
   wrapper where it launches the kernel and nowhere else; ``launch_forms``
-  counts the K1 launches that carry NOT rows or filter rows, the K2
+  counts the K1 launches that carry NOT rows or filter rows or take the
+  first n doc ids (``dense_and.topn``), the K2
   launches by their operation, the window-TF launches in non-overlapping
   mode and the K6 launches that read whole matrix rows (the text store's
   calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W);
@@ -16,9 +17,14 @@
   inputs or fails to launch (see ``errors.py``).
 - ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
   compiler process per source, all started together) into a plain-C
-  shared library, keyed by a hash of the sources, and loads it with
-  ctypes. ``DeviceIndex`` calls it when built on CUDA, so a failed build
-  fails table construction, not a query.
+  shared library, keyed by a hash of the sources and headers, and loads it
+  with ctypes. ``DeviceIndex`` calls it when built on CUDA, so a failed
+  build fails table construction, not a query.
+- ``launch_on(t, entry, *args)``: every C entry point is called through
+  it, with ``t``'s device current and ``t``'s current stream as the last
+  argument, so a launch lands on the card that holds its tensors; the
+  kernels keep their SM counts, attributes and grid memos per device
+  (``csrc/per_device.cuh``).
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ launches: Dict[str, int] = {"dense_and": 0, "reduce_rows": 0,
 # launches by the optional inputs or modes they carried
 launch_forms: Dict[str, int] = {"dense_and.not_rows": 0,
                                 "dense_and.extra_rows": 0,
+                                "dense_and.topn": 0,
                                 "reduce_rows.and": 0, "reduce_rows.or": 0,
                                 "tf_rows.nonoverlap": 0,
                                 "tf_rows_padded.whole_rows": 0}
@@ -163,7 +170,7 @@ def _build() -> Path:
     global build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -199,9 +206,9 @@ def _build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.mygram_dense_and.argtypes = [p, i64, p, i32, p, i32, p, i32, p,
-                                     p, p, i32, p]
-    lib.mygram_dense_and.restype = i32
+    lib.mygram_dense_and_topn.argtypes = [p, i64, p, i32, p, i32, p, i32,
+                                          p, p, i32, i32, p, i32, p]
+    lib.mygram_dense_and_topn.restype = i32
     lib.mygram_reduce_rows.argtypes = [p, i64, p, i32, i32, p, i32, p]
     lib.mygram_reduce_rows.restype = i32
     lib.mygram_gather_rows.argtypes = [p, i64, p, i64, p, p]
@@ -242,8 +249,13 @@ def check_launch(err: int, name: str, forms=(), shape=None) -> None:
             shapes[shape] = shapes.get(shape, 0) + 1
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch_on(t: torch.Tensor, entry, *args) -> int:
+    """Call the C entry point ``entry(*args, stream)`` with ``t``'s device
+    current and ``stream`` its current stream: the device guard of every
+    launch. -> the entry's error code."""
+    idx = t.device.index
+    with torch.cuda.device(idx):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -410,14 +410,15 @@ def _tf_rows_launch(name: str, text: torch.Tensor, starts, lens, owner,
     out = torch.empty((M, Nn + 1), dtype=torch.int32, device=text.device)
     if M == 0:
         return out
-    err = runtime.kernels().mygram_tf_rows(
+    err = runtime.launch_on(
+        text, runtime.kernels().mygram_tf_rows,
         text.data_ptr(), text.element_size(), text.numel(),
         starts.data_ptr(), lens.data_ptr(),
         None if owner is None else owner.data_ptr(),
         None if live is None else live.data_ptr(),
         ndl.data_ptr(), nlen.data_ptr(), M, max(Kv, 1), Nn, cap, win,
         int(padded), int(use_range), int(nonoverlap), pack_sentinel(text),
-        out.data_ptr(), runtime.stream_of(text))
+        out.data_ptr())
     forms = ["tf_rows.nonoverlap"] if nonoverlap else []
     if padded and win + cap == text.shape[-1]:
         forms.append("tf_rows_padded.whole_rows")  # the text store's calls

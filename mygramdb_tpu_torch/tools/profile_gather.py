@@ -62,9 +62,9 @@ def gather_rows(padded: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                       device=padded.device)
     if out.numel() == 0:
         return out
-    err = runtime.kernels().mygram_gather_rows(
-        padded.data_ptr(), row_bytes, ids.data_ptr(), ids.shape[0],
-        out.data_ptr(), runtime.stream_of(padded))
+    err = runtime.launch_on(
+        padded, runtime.kernels().mygram_gather_rows, padded.data_ptr(),
+        row_bytes, ids.data_ptr(), ids.shape[0], out.data_ptr())
     runtime.check_launch(err, "row_gather")
     return out
 

@@ -1,10 +1,12 @@
-"""Port parity for the dense data plane: the row-AND (K1) and its callers.
+"""Port parity for the dense data plane: the row-AND with its top-n (K1)
+and its callers.
 
 The port's ``dense_query_auto`` (on the CPU its kernel's plain version)
 against the JAX package's ``dense_query`` and ``dense_query_pallas`` in
 interpret mode, and the port's top-n against JAX ``_dense_search_topn`` in
 each of its three regimes (direct top_k below 1024 words, flat select below
-16384, blocked select above).
+16384, blocked select above), with NOT rows, filter rows and n from 0 past
+the count through ``dense_and_topn``.
 """
 
 import numpy as np
@@ -100,6 +102,73 @@ def test_dense_search_topn_matches_jax(W, descending, filtered):
                                               descending)
         assert cpk.dtype == np.int64 and ipk.dtype == np.int32
         assert np.array_equal(cpk, cjp) and np.array_equal(ipk, ijp)
+
+
+def fused_inputs(W, seed):
+    """Five queries over (V+2, W) rows: two dense ANDs, a sparse row (n
+    passes its count), an all-zero query and a four-row AND; NOT rows of
+    low density; two filter rows; tombstones."""
+    rng = np.random.default_rng(seed)
+    V = 12
+    bm = make_bitmaps(rng, V, W, density=0.9)
+    bm[V - 1] = make_bitmaps(rng, 1, W, density=0.0005)[0]
+    bm[V - 3:V - 1] = make_bitmaps(rng, 2, W, density=0.2)[:2]
+    rows = np.asarray([[0, 1, V, V], [2, 3, 4, V], [V - 1, V, V, V],
+                       [V + 1, V, V, V], [5, 6, 7, 8]], dtype=np.int32)
+    nrows = np.asarray([[V - 3, V + 1], [V - 2, V - 3], [V - 2, V + 1],
+                        [V + 1, V + 1], [V - 3, V - 2]], dtype=np.int32)
+    extra = make_bitmaps(rng, 2, W, density=0.95)[:2]
+    deleted = np.zeros(W, np.uint32)
+    deleted[rng.integers(0, W, size=W // 16)] = rng.integers(
+        0, 2 ** 32, size=W // 16, dtype=np.uint32)
+    return bm, rows, nrows, deleted, extra
+
+
+@pytest.mark.parametrize("W", [1024, 34816])
+@pytest.mark.parametrize("descending", [True, False])
+@pytest.mark.parametrize("form", ["and", "not", "filter", "not+filter"])
+def test_fused_dense_topn_matches_jax(W, descending, form):
+    """K1 with the top-n fused in (on the CPU its plain version) against
+    JAX ``_dense_search_topn``: count only (n = 0), one id, the batcher's
+    128, the fused program's 4,096 candidates and an n past the sparse
+    query's count, with NOT rows, filter rows, tombstones and an all-zero
+    query; -1 padded."""
+    bm, rows, nrows, deleted, extra = fused_inputs(W, W + descending)
+    has_not, has_extra = "not" in form, "filter" in form
+    args_j = (jnp.asarray(bm), jnp.asarray(rows), jnp.asarray(nrows),
+              jnp.asarray(deleted), jnp.asarray(extra))
+    for n in (0, 1, 128, 4096, 70_000):
+        cj, ij = J._dense_search_topn(*args_j, has_not, has_extra, n,
+                                      descending, False)
+        out, res = T.dense_and_topn(i32(bm), i32(rows),
+                                    i32(nrows) if has_not else None,
+                                    i32(extra) if has_extra else None,
+                                    i32(deleted), n, descending)
+        assert res is None and out.shape == (rows.shape[0], n + 1)
+        assert np.array_equal(out[:, 0].numpy(), np.asarray(cj)), n
+        assert np.array_equal(out[:, 1:].numpy(), np.asarray(ij)), n
+    counts = out[:, 0].numpy()
+    assert counts[3] == 0 and (out[3, 1:] == -1).all()
+    assert 0 < counts[2] < 70_000 and counts.max() > 4096
+
+
+@pytest.mark.parametrize("W", [1024, 34816])
+def test_fused_dense_words_match_pallas_interpret(W):
+    """The words K1 writes beside its ids against JAX
+    ``dense_query_pallas`` in interpret mode, and the ids against
+    ``_dense_search_topn`` with the words from that kernel."""
+    bm, rows, _, deleted, _ = fused_inputs(W, 3)
+    cp, rp = J.dense_query_pallas(jnp.asarray(bm), jnp.asarray(rows),
+                                  jnp.asarray(deleted), interpret=True)
+    out, res = T.dense_and_topn(i32(bm), i32(rows), None, None,
+                                i32(deleted), 128, True, words=True)
+    assert np.array_equal(u32(res), u32(rp))
+    assert np.array_equal(out[:, 0].numpy(), np.asarray(cp))
+    _, ij = J._dense_search_topn(jnp.asarray(bm), jnp.asarray(rows),
+                                 jnp.asarray(rows[:, :1]),
+                                 jnp.asarray(deleted), jnp.asarray(bm[:1]),
+                                 False, False, 128, True, False)
+    assert np.array_equal(out[:, 1:].numpy(), np.asarray(ij))
 
 
 def test_bit_helpers_match_jax():

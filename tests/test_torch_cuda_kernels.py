@@ -54,6 +54,129 @@ def test_dense_and_matches_plain(W, form):
     assert int(c.sum()) > 0
 
 
+# K1 with the top-n fused in: counts and the first n doc ids in one launch
+
+def topn_plain(args, n, descending):
+    """The plain version's (out, res) of ``dense_and_topn``."""
+    return bitmap_ops._dense_and_topn_plain(*args, n, descending, True)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 128, 1024, 65536, 262144])
+@pytest.mark.parametrize("W", [1024, 34816, 313344])
+def test_dense_and_topn_matches_plain(W, n, descending):
+    require_cuda()
+    bm, rows, nrows, extra, deleted = [t.cuda() for t in
+                                       dense_inputs(W, K=8, seed=n)]
+    form = [None, "not", "extra", "not+extra"][(n + W // 1024) % 4]
+    args = (bm, rows, nrows if form and "not" in form else None,
+            extra if form and "extra" in form else None, deleted)
+    before = runtime.launches["dense_and"], runtime.launch_forms[
+        "dense_and.topn"]
+    out, res = bitmap_ops.dense_and_topn(*args, n, descending)
+    want, _ = topn_plain(args, n, descending)
+    torch.cuda.synchronize()
+    assert (runtime.launches["dense_and"], runtime.launch_forms[
+        "dense_and.topn"]) == (before[0] + 1, before[1] + (n > 0))
+    assert res is None and out.shape == (9, n + 1)
+    assert torch.equal(out, want)
+    assert int(out[:, 0].min()) > 0
+
+
+@pytest.mark.parametrize("B,W,n", [(1, 34816, 128), (1, 313344, 1024),
+                                   (64, 34816, 1024), (64, 313344, 128),
+                                   (70_000, 1024, 128)])
+def test_dense_and_topn_batch_sizes(B, W, n):
+    """One query (a cluster of 16 blocks), the micro-batcher's 64, and more
+    queries than the grid's 65,535 rows (they loop inside the cluster)."""
+    require_cuda()
+    bm, _, nrows, extra, deleted = [t.cuda() for t in dense_inputs(W, B=1)]
+    g = torch.Generator().manual_seed(B + W)
+    rows = torch.randint(0, 3, (B, 3), dtype=torch.int32, generator=g).cuda()
+    for descending in (False, True):
+        args = (bm, rows, nrows.expand(B, -1).contiguous(), extra, deleted)
+        out, _ = bitmap_ops.dense_and_topn(*args, n, descending)
+        want, _ = topn_plain(args, n, descending)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def placed_bits(W, spans, density=0.3, seed=0):
+    """(3, W) rows: row 0 with random bits only inside the word spans
+    given as (start, end) fractions of W, row 1 all-ones, row 2 all-zeros;
+    no tombstones."""
+    g = torch.Generator().manual_seed(seed)
+    bm = torch.zeros((3, W), dtype=torch.int32)
+    for a, b in spans:
+        lo, hi = int(a * W), int(b * W)
+        bits = torch.rand((hi - lo, 32), generator=g) < density
+        words = (bits.long() << torch.arange(32)).sum(1)
+        bm[0, lo:hi] = (words - (words >= 2 ** 31).long() * 2 ** 32).int()
+    bm[1], bm[2] = -1, 0
+    return bm.cuda(), torch.zeros(W, dtype=torch.int32).cuda()
+
+
+@pytest.mark.parametrize("W", [34816, 313344])
+@pytest.mark.parametrize("case", ["last_block", "first_block_passes_n",
+                                  "empty", "one_bit_each_end"])
+def test_dense_and_topn_rank_edges(W, case):
+    """Bits only in the last block of the cluster (the blocks before it
+    count nothing); an offset that passes n inside the first block (every
+    other block skips its pass 2); an all-zero result (-1 everywhere); a
+    bit at each end of the doc range."""
+    require_cuda()
+    spans = {"last_block": [(0.97, 1.0)],
+             "first_block_passes_n": [(0.0, 1.0)],
+             "empty": [], "one_bit_each_end": []}[case]
+    bm, deleted = placed_bits(W, spans, density=0.9 if "first" in case
+                              else 0.3)
+    if case == "one_bit_each_end":
+        bm[0, 0], bm[0, W - 1] = 1, -2 ** 31  # doc 0 and doc 32 W - 1
+    rows = torch.tensor([[0, 1], [0, 0], [2, 1]], dtype=torch.int32).cuda()
+    for descending in (False, True):
+        for n in (0, 1, 7, 1024, 65536):
+            args = (bm, rows, None, None, deleted)
+            out, _ = bitmap_ops.dense_and_topn(*args, n, descending)
+            want, _ = topn_plain(args, n, descending)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (descending, n)
+    assert int(out[2, 0]) == 0 and bool((out[2, 1:] == -1).all())
+    if case == "one_bit_each_end":
+        assert out[0, 1:3].tolist() == [32 * W - 1, 0]
+
+
+@pytest.mark.parametrize("n", [0, 128])
+@pytest.mark.parametrize("W", [1024, 34816, 313344])
+def test_dense_and_topn_words_output(W, n):
+    """The result words, asked for beside the ids, against
+    ``_dense_query_plain``."""
+    require_cuda()
+    bm, rows, nrows, extra, deleted = [t.cuda() for t in dense_inputs(W)]
+    args = (bm, rows, nrows, extra, deleted)
+    out, res = bitmap_ops.dense_and_topn(*args, n, True, words=True)
+    count, want = bitmap_ops._dense_query_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(res, want) and torch.equal(out[:, 0], count)
+    assert torch.equal(out, topn_plain(args, n, True)[0])
+
+
+def test_dense_and_topn_refuses_bad_inputs():
+    require_cuda()
+    bm, rows, _, _, deleted = [t.cuda() for t in dense_inputs(1024)]
+    with pytest.raises(KernelError, match="n="):
+        bitmap_ops.dense_and_topn(bm, rows, None, None, deleted, -1, True)
+    with pytest.raises(KernelError, match="int32"):
+        bitmap_ops.dense_and_topn(bm, rows.long(), None, None, deleted, 8,
+                                  True)
+    with pytest.raises(KernelError, match="aligned"):
+        bitmap_ops.dense_and_topn(
+            bm, rows, None, None,
+            torch.zeros(1025, dtype=torch.int32, device="cuda")[1:], 8, True)
+    with pytest.raises(KernelError):
+        bitmap_ops.dense_and_topn(bm, rows.cpu(), None, None, deleted, 8,
+                                  True)
+
+
 def test_dense_and_many_queries_and_rows():
     require_cuda()
     bm, _, nrows, _, deleted = [t.cuda() for t in dense_inputs(2048, B=4)]
@@ -576,6 +699,11 @@ def test_boolean_and_fuzzy_paths_on_cuda_match_cpu():
     (torch.int16, 300, 8, 1),              # one 16-byte row
     (torch.int32, 77, 36, 4099),           # rows of 144 bytes, ids repeat
     (torch.uint8, 1000, 48, 333),
+    (torch.int16, 5000, 1024, 100),        # fewer rows than SMs
+    (torch.int16, 5000, 1024, 13),         # no multiple of the ring
+    (torch.int16, 4000, 8, 70_001),        # 16-byte rows, many
+    (torch.int32, 500, 2048, 777),         # 8 KB rows: two stages each
+    (torch.int32, 300, 1028, 99),          # 4,112 B: a 16-byte last chunk
 ])
 def test_gather_rows_matches_plain(dtype, N, rowT, R):
     require_cuda()
@@ -627,3 +755,64 @@ def test_gather_rows_refuses_bad_inputs():
     with pytest.raises(KernelError):
         pg.gather_rows(src, ids.cpu())
     assert pg.gather_rows(src, ids[:0]).shape == (0, 1024)
+
+
+# ---------------------------------------------------------------------------
+# Every kernel on a second card (the device guard and per-device state)
+# ---------------------------------------------------------------------------
+
+def second_card():
+    """cuda:1 while cuda:0 stays current; skips on a host of one card."""
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    assert torch.cuda.current_device() == 0
+    return torch.device("cuda:1")
+
+
+@pytest.mark.parametrize("kernel", ["dense_and", "dense_and_topn",
+                                    "reduce_rows", "slice_gather",
+                                    "tf_rows", "row_gather"])
+def test_every_kernel_on_a_second_card(kernel):
+    dev = second_card()
+    if kernel in ("dense_and", "dense_and_topn", "reduce_rows"):
+        bm, rows, nrows, extra, deleted = [t.to(dev) for t in
+                                           dense_inputs(313344, K=6)]
+        args = (bm, rows, nrows, extra, deleted)
+        if kernel == "dense_and":
+            got, want = (bitmap_ops.dense_and(*args),
+                         bitmap_ops._dense_query_plain(*args))
+        elif kernel == "dense_and_topn":
+            got = bitmap_ops.dense_and_topn(*args, 1024, True, words=True)
+            want = topn_plain(args, 1024, True)
+        else:
+            got = (bitmap_ops.reduce_rows(bm, rows, "and"),)
+            want = (bitmap_ops._reduce_rows_plain(bm, rows, "and"),)
+    elif kernel == "slice_gather":
+        post = torch.arange(100_000, dtype=torch.int32, device=dev)
+        offs = torch.arange(0, 99_000, 990, dtype=torch.int64, device=dev)
+        lens = torch.full_like(offs, 700)
+        got = (posting_ops.gather_slices(post, offs, lens, 1024),)
+        want = (posting_ops._gather_slices_plain(post, offs, lens, 1024),)
+    elif kernel == "tf_rows":
+        # u32 cells and a 2,048 window: 66 KB of shared memory a block, past
+        # the 48 KB a device allows before its kernel raises the limit
+        flat, offs, lens = text_pack(True, N=2000, maxT=2048)
+        ndl, nlen = needle_table(flat, offs, lens, 2, 2, 4, False)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        ids = np.arange(1024) % lens.size
+        args = (t(flat.view(np.int32)), t(offs[ids]), t(lens[ids]),
+                t(verify_ops.cast_needles_i32(ndl, np.uint32, 4)), t(nlen))
+        kw = dict(Kv=512, cap=4, win=2048, use_range=True)
+        got = (verify_ops.tf_rows_flat(*args, **kw),)
+        want = (verify_ops._tf_flat_plain(*args, **kw),)
+    else:
+        from mygramdb_tpu_torch.tools import profile_gather as pg
+        src = torch.randint(0, 1000, (5000, 1024), dtype=torch.int16,
+                            device=dev)
+        ids = torch.randint(0, 5000, (3001,), dtype=torch.int32, device=dev)
+        got, want = (pg.gather_rows(src, ids),), (pg._gather_rows_plain(src,
+                                                                         ids),)
+    torch.cuda.synchronize(dev)
+    for a, b in zip(got, want):
+        assert a.device == dev and torch.equal(a, b)

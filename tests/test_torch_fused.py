@@ -264,6 +264,35 @@ def test_dense_batch_equals_jax(pair, monkeypatch, mode):
     assert ran == [expected_kernel(layout, mode)]
 
 
+@pytest.mark.parametrize("filtered", [False, True])
+def test_dense_candidates_equal_jax(pair, filtered):
+    """The dense-driver program's candidates, K1's first C ids ascending
+    with the count as ``pre`` (one launch on the card), against JAX
+    ``_dense_search_topn`` over the same index, at the fused widths 512 and
+    4,096."""
+    from mygramdb_tpu.ops import bitmap_ops as jbm
+    import jax.numpy as jnp
+    layout, built, texts, (jidx, jst), (tidx, tst) = pair
+    rows = np.full((len(DENSE_BATCH), 8), jidx.ones_row, dtype=np.int32)
+    for i, t in enumerate(DENSE_BATCH):
+        d = jidx.classify(tids_of(built, t))[0]
+        rows[i, :len(d)] = d
+    row = filter_rows(jidx, 7)
+    for C in (512, 4096):
+        cj, ij = jbm._dense_search_topn(
+            jidx.bitmaps, jnp.asarray(rows),
+            jnp.full((rows.shape[0], 1), jidx.zeros_row, dtype=jnp.int32),
+            jidx.deleted, jnp.asarray(row[None]), False, filtered, C, False,
+            False)
+        out, _ = tfused.dense_and_topn(
+            tidx.bitmaps, torch.from_numpy(rows), None,
+            torch.from_numpy(row.view(np.int32)[None].copy()) if filtered
+            else None, tidx.deleted, C, False)
+        assert np.array_equal(out[:, 0].numpy(), np.asarray(cj))
+        assert np.array_equal(out[:, 1:].numpy(), np.asarray(ij))
+        assert out[:, 0].max() > 0
+
+
 def test_compact_first_k_equals_jax():
     import jax.numpy as jnp
     rng = np.random.default_rng(2)
