@@ -89,7 +89,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                   "mygramdb_tpu/ops/bitmap_ops.py:184"),
     "reduce_rows": ("mygramdb_tpu_torch/csrc/dense_and.cu",
                     "mygramdb_tpu/ops/bitmap_ops.py:308"),
+    "ast_words": ("mygramdb_tpu_torch/csrc/dense_and.cu",
+                  "mygramdb_tpu/ops/bitmap_ops.py:308"),
     "slice_gather": ("mygramdb_tpu_torch/csrc/slice_gather.cu",
+                     "mygramdb_tpu/ops/posting_ops.py:69"),
+    "sparse_probe": ("mygramdb_tpu_torch/csrc/slice_gather.cu",
                      "mygramdb_tpu/ops/posting_ops.py:69"),
     "tf_rows_flat": ("mygramdb_tpu_torch/csrc/verify_tf.cu",
                      "mygramdb_tpu/ops/verify_ops.py:669"),
@@ -199,7 +203,9 @@ def device_profile(fn, reps: int = 20) -> dict:
     """The device work of one fn() call under torch.profiler, over reps
     back-to-back calls: "device_ms", the summed device time of its kernels;
     "kernels", kernels launched a call (copies and memsets not counted);
-    "by_kernel", device ms a call by kernel name."""
+    "by_kernel", device ms a call by kernel name. device_ms is None when
+    the profiler recorded no device time (then only the event-timed ms
+    stands)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -210,7 +216,8 @@ def device_profile(fn, reps: int = 20) -> dict:
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages() if dev_us(e) > 0
           and not e.key.startswith(("Memcpy", "Memset"))]
-    return {"device_ms": sum(dev_us(e) for e in ev) / reps / 1e3,
+    return {"device_ms": (sum(dev_us(e) for e in ev) / reps / 1e3
+                          if ev else None),
             "kernels": sum(e.count for e in ev) / reps,
             "by_kernel": {e.key[:60]: dev_us(e) / reps / 1e3 for e in ev}}
 
@@ -478,6 +485,570 @@ def reduce_rows_phase(gen) -> dict:
            for op in ("and", "or")}
     emit({"phase": "kernels", "kernel": "reduce_rows (K2)", "checks": checks,
           "timed": out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3's probe entry and K2's tree entry: the sparse and the boolean program
+# ---------------------------------------------------------------------------
+
+PROBE_V = 96  # dense rows of the synthetic matrices; V all-ones, V+1 zeros
+
+
+def probe_inputs(rng, B: int, C: int, Ks: int, Kd: int, W: int) -> dict:
+    """Host inputs of the sparse program over W words of documents: a CSR
+    of sorted posting lists (drivers of up to C entries, one of C + 7, a
+    driver at offset P and one running past it; probe lists holding most
+    of their driver's ids, every third a NOT term holding few; query 0
+    fills all Ks slots, an inverted empty slot pads the rest, query 6 has
+    an empty term), dense rows with a NOT row among them padded with the
+    all-ones row, two filter rows and tombstones among the postings.
+    -> numpy arrays: postings, bitmaps (uint32), deleted, extra, args (the
+    ``pack_sparse_args`` layout) and Cmax (a power of two)."""
+    import numpy as np
+    n_docs = W * 32
+    lists, q_probes = [], []
+    for b in range(B):
+        dl = min(C + 7 if b % 5 == 2 else
+                 (C if b % 5 == 1 else int(rng.integers(1, C + 1))),
+                 n_docs // 2)
+        drv = np.sort(rng.choice(n_docs, size=dl, replace=False))
+        lists.append(drv)
+        probes = []
+        for k in range(Ks if b == 0 else int(rng.integers(0, min(Ks, 6) + 1))):
+            inv = k % 3 == 2
+            keep = drv[rng.random(dl) < (0.1 if inv else 0.9)]
+            other = rng.choice(n_docs, replace=False, size=int(
+                rng.integers(0, min(3 * C, 8192))))
+            probes.append((len(lists), inv))
+            lists.append(np.union1d(keep, other))
+        q_probes.append(probes)
+    lens = np.asarray([x.size for x in lists], dtype=np.int64)
+    offs = np.zeros(len(lists), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    post = np.concatenate(lists).astype(np.int32)
+    P = post.size
+    Q = 2 + 3 * Ks + 2 * Kd
+    args = np.zeros((B, Q), dtype=np.int64)
+    s = 2 + 3 * Ks
+    drivers = np.cumsum([0] + [1 + len(p) for p in q_probes[:-1]])
+    args[:, 0], args[:, 1] = offs[drivers], lens[drivers]
+    if B > 3:
+        args[3, :2] = (P, 40)           # a dense term's entry
+    if B > 4:
+        args[4, :2] = (P - 5, 60)       # a driver running past P
+    args[:, 2 + 2 * Ks:s] = 1           # inverted empty padding
+    for b, probes in enumerate(q_probes):
+        for k, (li, inv) in enumerate(probes):
+            args[b, 2 + k], args[b, 2 + Ks + k] = offs[li], lens[li]
+            args[b, 2 + 2 * Ks + k] = inv
+    if B > 6:
+        args[6, s - 1] = 0              # an empty term: matches nothing
+    args[:, s:s + Kd] = PROBE_V
+    for b in range(B):
+        for k in range(int(rng.integers(0, min(Kd, 4) + 1))):
+            args[b, s + k] = rng.integers(0, PROBE_V)
+            args[b, s + Kd + k] = k == 2
+    def bits(rows):  # 7/8 of the bits set
+        w = rng.integers(0, 2 ** 32, (rows, W), dtype=np.uint32)
+        for _ in range(2):
+            w |= rng.integers(0, 2 ** 32, (rows, W), dtype=np.uint32)
+        return w
+    bm = np.concatenate([bits(PROBE_V),
+                         np.full((1, W), 0xFFFFFFFF, np.uint32),
+                         np.zeros((1, W), np.uint32)])
+    deleted = np.zeros(W, dtype=np.uint32)
+    gone = rng.choice(post, size=max(P // 40, 1))
+    np.bitwise_or.at(deleted, gone >> 5,
+                     np.left_shift(np.uint32(1), (gone & 31).astype(np.uint32)))
+    Cmax = 1
+    while Cmax < max(int(args[:, 2 + Ks:2 + 2 * Ks].max(initial=1)), 1):
+        Cmax <<= 1
+    return {"postings": post, "bitmaps": bm, "deleted": deleted,
+            "extra": bits(2), "args": args, "Cmax": Cmax}
+
+
+def on_card(h: dict) -> dict:
+    """probe_inputs' arrays as contiguous tensors on the card (uint32
+    words as their int32 bits)."""
+    import numpy as np
+    import torch
+    out = {}
+    for k, v in h.items():
+        if isinstance(v, np.ndarray):
+            v = v.view(np.int32) if v.dtype == np.uint32 else v
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).cuda()
+    return out
+
+
+def probe_bytes(h: dict, Ks: int, Kd: int, C: int, F: int, sparse: bool,
+                dense: bool, out_ints: int) -> int:
+    """Bytes the sparse program must move for these inputs: its arguments,
+    each gathered driver entry, each probe slice's entries between its
+    driver's first and last candidate, one word a candidate for the
+    tombstones, each filter row and each dense row that is not padding,
+    and its output."""
+    import numpy as np
+    post, args = h["postings"], h["args"]
+    P = post.size
+    s = 2 + 3 * Ks
+    total = args.nbytes + 4 * out_ints
+    for a in args:
+        lo, hi = max(int(a[0]), 0), min(int(a[0]) + min(int(a[1]), C), P)
+        if hi <= lo:
+            continue
+        nv = hi - lo
+        words = 1 + F + (int((a[s:s + Kd] != PROBE_V).sum()) if dense else 0)
+        total += 4 * nv * (1 + words)
+        if sparse:
+            first, last = int(post[lo]), int(post[hi - 1])
+            for k in range(Ks):
+                o, n = int(a[2 + k]), int(a[2 + Ks + k])
+                e = min(o + n, P)
+                if e > o:
+                    sl = post[o:e]
+                    total += 4 * int(np.searchsorted(sl, last, "right")
+                                     - np.searchsorted(sl, first))
+    return total
+
+
+def probe_forms(C: int):
+    """(form, width, descending) the serving path asks for at a C: the
+    batcher's pages, count only, n past C, the fused program's
+    compactions and the probeless candidate vector."""
+    return [("topn", 128, False), ("topn", 1024, True), ("topn", 0, True),
+            ("topn", 2 * C + 3, True), ("compact", min(4096, C), False),
+            ("compact", C, False), ("masked", C, False)]
+
+
+def sparse_probe_checks(gen) -> dict:
+    """K3's probe entry exactly against its plain version at every C
+    bucket of the serving path (candidate_buckets and the fused program's
+    _VERIFY_CAND_BUCKETS), B = 1 and 64, Ks = Kd = 8 and 32, every output
+    form, with all probes and filter rows, probe-free and the sparse
+    probes alone."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.ops import posting_ops
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                  generator=gen)))
+    W, checks, err, survivors = 34816, 0, 0, 0
+    for C in (512, 2048, 4096, 8192, 32768, 65536):
+        for B in (1, 64):
+            for Ks, Kd in ((8, 8), (32, 32)):
+                h = probe_inputs(rng, B, C, Ks, Kd, W)
+                t = on_card(h)
+                for form, width, desc in probe_forms(C):
+                    for sparse, dense, ext in ((True, True, t["extra"]),
+                                               (False, False, None),
+                                               (True, False, None)):
+                        kw = dict(Ks=Ks, Kd=Kd, C=C, Cmax=h["Cmax"],
+                                  n_words=W, form=form, width=width,
+                                  descending=desc, sparse_probes=sparse,
+                                  dense_probes=dense)
+                        a = (t["postings"], t["bitmaps"], t["deleted"], ext,
+                             t["args"])
+                        got = posting_ops.sparse_probe(*a, **kw)
+                        want = posting_ops._sparse_probe_plain(*a, **kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"sparse probe disagrees: C={C} B={B} Ks={Ks} "
+                              f"form={form} width={width} desc={desc} "
+                              f"probes={sparse, dense}")
+                        err = max(err, int((got.long() - want.long()).abs()
+                                           .max()) if got.numel() else 0)
+                        checks += 1
+                        cnt = want[:B] if want.dim() == 1 else want[:, 0]
+                        survivors += int(cnt.sum())
+                del t
+    check(survivors > 0, "sparse probe checks: no candidate survived")
+    torch.cuda.empty_cache()
+    return {"checks": checks, "max_abs_err": err, "survivors": survivors}
+
+
+def sparse_probe_numbers(gen, form: str, B: int, C: int, Ks: int, Kd: int,
+                         width: int, probes: int, W: int = 34816) -> dict:
+    """K3's probe entry at one shape over synthetic inputs: exact against
+    its plain version, "ms" event-timed (the wrapper's host path
+    included), "device_ms" and "kernels" a call from torch.profiler, the
+    plain version's time, and the bound (``probe_bytes``)."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.ops import posting_ops
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                  generator=gen)))
+    h = probe_inputs(rng, B, C, Ks, Kd, W)
+    t = on_card(h)
+    kw = dict(Ks=Ks, Kd=Kd, C=C, Cmax=h["Cmax"], n_words=W, form=form,
+              width=width, descending=form == "topn",
+              sparse_probes=bool(probes & 1), dense_probes=bool(probes & 2))
+    a = (t["postings"], t["bitmaps"], t["deleted"], None, t["args"])
+    got = posting_ops.sparse_probe(*a, **kw)
+    want = posting_ops._sparse_probe_plain(*a, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"sparse probe disagrees at {form} B={B} "
+                                  f"C={C} Ks={Ks} Kd={Kd} width={width}")
+    prof = device_profile(lambda: posting_ops.sparse_probe(*a, **kw))
+    out_ints = B * (width + 1)
+    out = {"max_abs_err": 0, "ms": cuda_ms(
+               lambda: posting_ops.sparse_probe(*a, **kw)),
+           "plain_ms": cuda_ms(lambda: posting_ops._sparse_probe_plain(
+               *a, **kw), reps=5),
+           # a launch's mean over the launches the profiler recorded
+           "device_ms": device_ms(lambda: posting_ops.sparse_probe(*a, **kw),
+                                  "sparse_probe_kernel"),
+           "kernels": prof["kernels"],
+           "shape": f"{form} B={B} C={C} Ks={Ks} Kd={Kd} width={width} "
+                    f"probes={probes} W={W}",
+           **bound(probe_bytes(h, Ks, Kd, C, 0, bool(probes & 1),
+                               bool(probes & 2), out_ints), 0)}
+    out["device_share_of_bound"] = (out["bound_ms"] / out["device_ms"]
+                                    if out["device_ms"] else None)
+    return out
+
+
+def tree_inputs(rng, W: int, T: int, K: int, S: int, pool: int = 30000,
+                keep: float = 0.6) -> dict:
+    """Host inputs of the boolean program: random rows (15/16 of their
+    bits set; row V all-ones, V + 1 all-zeros), T * S posting lists that
+    each keep about ``keep`` of one pool of documents (so ANDs of them hold
+    documents), rows (T, K) padded with the all-ones row, leaf 4 the
+    all-zeros row, padding slots, tombstones and a universe."""
+    import numpy as np
+    V, n_docs = PROBE_V, W * 32
+    bm = rng.integers(0, 2 ** 32, size=(V + 2, W), dtype=np.uint32)
+    for _ in range(3):
+        bm[:V] |= rng.integers(0, 2 ** 32, size=(V, W), dtype=np.uint32)
+    bm[V], bm[V + 1] = 0xFFFFFFFF, 0
+    docs = rng.choice(n_docs, min(pool, n_docs), replace=False)
+    lists = [np.sort(docs[rng.random(docs.size) < keep])
+             for _ in range(max(T * S, 1))]
+    lens_all = np.asarray([x.size for x in lists], dtype=np.int64)
+    offs_all = np.zeros(len(lists), dtype=np.int64)
+    np.cumsum(lens_all[:-1], out=offs_all[1:])
+    rows = rng.integers(0, V, size=(T, K)).astype(np.int32)
+    rows[:, K - 1] = V
+    if T > 4:
+        rows[4] = V + 1
+    offs = offs_all[:T * S].reshape(T, S).copy()
+    lens = lens_all[:T * S].reshape(T, S).copy()
+    if S and T > 1:
+        lens[1, -1] = 0
+    deleted = np.zeros(W, dtype=np.uint32)
+    deleted[rng.integers(0, W, W // 40)] = rng.integers(
+        0, 2 ** 32, W // 40, dtype=np.uint32)
+    return {"bitmaps": bm, "postings": np.concatenate(lists).astype(np.int32),
+            "deleted": deleted,
+            "universe": rng.integers(0, 2 ** 32, W, dtype=np.uint32) | deleted,
+            "rows": rows, "offs": offs, "lens": lens,
+            "real": rng.random((T, S)) < 0.5}
+
+
+def chain_tree(depth: int, T: int) -> tuple:
+    """A tree ``depth`` levels deep that cycles AND, OR and NOT, a leaf at
+    every level."""
+    node = ("t", 0)
+    for i in range(depth - 1):
+        tag = "&|!"[i % 3]
+        node = ("!", node) if tag == "!" else (tag, ("t", (i + 1) % T), node)
+    return node
+
+
+def served_tree(T: int) -> tuple:
+    """The verified serve's commonest tree shape over T leaves (an AND of
+    an OR and a NOT, as make_kind_queries draws them)."""
+    if T == 1:
+        return ("t", 0)
+    if T == 2:
+        return ("&", ("t", 0), ("!", ("t", 1)))
+    return ("&", ("|",) + tuple(("t", i) for i in range(T - 1)),
+            ("!", ("t", T - 1)))
+
+
+def tree_bytes(h: dict, sig: tuple, W: int) -> int:
+    """Bytes the boolean program must move: each distinct dense row, each
+    slice entry, the tombstones, the universe when a NOT needs it, the
+    words out, and its arguments."""
+    import numpy as np
+    rows = np.unique(h["rows"])
+    total = 4 * W * (rows.size + 2 + ("!" in str(sig)))
+    total += 4 * int(h["lens"].sum()) + 8 * 4 * h["lens"].size
+    return total + 8 * h["rows"].size
+
+
+def ast_words_checks(gen) -> dict:
+    """K2's tree entry exactly against its plain version at W of 1.1M
+    documents: a leaf, NOT at the root, an unknown gram's leaf, no sparse
+    slot, the parser's deepest tree (32 levels), a stack too deep for the
+    widest span, more slices than a block caches windows for, a wide AND;
+    with and without ``real``."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.ops import bitmap_ops
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                  generator=gen)))
+    W = 34816
+    cases = {
+        "leaf": (("t", 0), 1, 3, 2),
+        "not_root": (("!", ("|", ("t", 0), ("&", ("t", 1), ("t", 2)))),
+                     3, 4, 2),
+        "zeros_leaf": (("&", ("|", ("t", 3), ("t", 4)), ("!", ("t", 1))),
+                       5, 3, 2),
+        "no_sparse": (("|", ("t", 0), ("!", ("t", 1))), 2, 8, 0),
+        "max_depth": (chain_tree(32, 6), 6, 4, 3),
+        "deep_stack": (chain_tree(400, 6), 6, 2, 1),
+        "many_slices": (("|",) + tuple(("t", i) for i in range(40)), 40, 2,
+                        30),
+        "wide_and": (("&", ("t", 0), ("t", 1), ("t", 3), ("t", 0)), 4, 1, 2),
+    }
+    checks, nonzero = 0, 0
+    for name, (sig, T, K, S) in cases.items():
+        h = tree_inputs(rng, W, T, K, S, keep=0.97 if S > 10 else 0.6)
+        t = on_card(h)
+        bucket = int(max(h["lens"].max(initial=1), 1))
+        for real in (None, h["real"]):
+            args = (sig, t["bitmaps"], t["postings"], t["deleted"],
+                    t["universe"], h["rows"], h["offs"], h["lens"])
+            kw = dict(bucket=bucket, n_words=W, real=real)
+            got = bitmap_ops.ast_words(*args, **kw)
+            want = bitmap_ops._ast_words_plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"boolean program disagrees: {name} real={real is not None}")
+            checks += 1
+            nonzero += bool(got.any())
+    check(nonzero >= checks // 2, f"boolean program checks: {nonzero} of "
+                                  f"{checks} results hold documents")
+    return {"checks": checks, "nonzero": nonzero, "max_abs_err": 0}
+
+
+def ast_words_numbers(gen, T: int, K: int, S: int, W: int = 34816) -> dict:
+    """K2's tree entry at one shape (T leaves of K dense rows and S
+    slices, ``served_tree``): exact against its plain version, event and
+    device ms, the plain version's ms, and the bound (``tree_bytes``)."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.ops import bitmap_ops
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                  generator=gen)))
+    h = tree_inputs(rng, W, T, K, S)
+    t = on_card(h)
+    sig = served_tree(T)
+    args = (sig, t["bitmaps"], t["postings"], t["deleted"], t["universe"],
+            h["rows"], h["offs"], h["lens"])
+    kw = dict(bucket=int(max(h["lens"].max(initial=1), 1)), n_words=W)
+    got = bitmap_ops.ast_words(*args, **kw)
+    want = bitmap_ops._ast_words_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"boolean program disagrees at T={T} "
+                                  f"K={K} S={S}")
+    prof = device_profile(lambda: bitmap_ops.ast_words(*args, **kw))
+    out = {"max_abs_err": 0,
+           "ms": cuda_ms(lambda: bitmap_ops.ast_words(*args, **kw)),
+           "plain_ms": cuda_ms(lambda: bitmap_ops._ast_words_plain(
+               *args, **kw), reps=5),
+           "device_ms": device_ms(lambda: bitmap_ops.ast_words(*args, **kw),
+                                  "ast_words_kernel"),
+           "kernels": prof["kernels"],
+           "shape": f"T={T} K={K} S={S} W={W} tree={sig}",
+           **bound(tree_bytes(h, sig, W), 0)}
+    out["device_share_of_bound"] = (out["bound_ms"] / out["device_ms"]
+                                    if out["device_ms"] else None)
+    return out
+
+
+def with_device_ms(numbers: dict, pre: dict) -> dict:
+    """A timing taken after a serve, with the device time of the run
+    before the serves at the same shape (other synthetic data) where there
+    was one: after a serve torch.profiler records few of the launches, or
+    none."""
+    if numbers["shape"] in pre:
+        numbers["device_ms_after_serve"] = numbers.get("device_ms")
+        numbers["device_ms"] = pre[numbers["shape"]]["device_ms"]
+        numbers["device_ms_from"] = "the run before the serves"
+    return numbers
+
+
+class _StubIndex:
+    """What MicroBatcher._execute_sparse reads of a DeviceIndex."""
+
+    def __init__(self, t: dict, W: int):
+        import torch
+        self.postings, self.bitmaps = t["postings"], t["bitmaps"]
+        self.deleted = t["deleted"]
+        self.ones_row, self.zeros_row, self.n_words = PROBE_V, PROBE_V + 1, W
+        self._device = torch.device("cuda")
+        self._ones = self.bitmaps[PROBE_V][None]
+
+    def _pack_extra(self, rows):
+        import torch
+        return self._ones if not rows else torch.stack(list(rows))
+
+
+def probe_reference(h: dict, Ks: int, Kd: int, C: int, Cmax: int, W: int):
+    """Each query's surviving candidates, ascending, from numpy set
+    operations over the host CSR (an independent reference)."""
+    import numpy as np
+    post, bm, deleted = h["postings"], h["bitmaps"], h["deleted"]
+    P, s = post.size, 2 + 3 * Ks
+    bit = lambda words, ids: (words[ids >> 5] >> (ids & 31).astype(
+        np.uint32)) & 1
+    out = []
+    for a in h["args"]:
+        lo, hi = max(int(a[0]), 0), min(int(a[0]) + min(int(a[1]), C), P)
+        c = post[lo:max(hi, lo)].astype(np.int64)
+        keep = bit(deleted, np.clip(c, 0, W * 32 - 1)) == 0
+        for k in range(Ks):
+            o = int(a[2 + k])
+            sl = post[o:min(o + min(int(a[2 + Ks + k]), Cmax), P)]
+            keep &= np.isin(c, sl) != bool(a[2 + 2 * Ks + k])
+        for k in range(Kd):
+            keep &= (bit(bm[int(a[s + k])], c) == 1) != bool(a[s + Kd + k])
+        out.append(c[keep])
+    return out
+
+
+def program_numbers(gen, W: int = 34816) -> dict:
+    """The sparse program, the fused sparse verify's mask and compaction,
+    and the boolean program, each as the serving path runs it, through
+    entry points of this tree or of an older one: the micro-batcher's
+    ``_execute_sparse`` (its uploads, its device program, its pull) at
+    B=64 C=2048 Ks=Kd=8 n=128 descending; the mask and compaction the
+    fused sparse verify hands to its verify stage at B=64 C=8192 Kv=4,096
+    (sparse probes on, dense off); ``bitmap_ops.ast_words`` (older trees:
+    ``device_index._ast_words_program``) and its pull for a tree of 3
+    leaves (K=4, S=2) at W = 34,816. Each: the kernels a call
+    (torch.profiler, copies not counted), device ms, event ms, and answers
+    checked against numpy. A copy of this script in an older tree's checkout
+    times that tree. -> {program: numbers}."""
+    import numpy as np
+    import torch
+    from mygramdb_tpu_torch.index import device_index
+    from mygramdb_tpu_torch.ops import bitmap_ops, posting_ops, runtime
+    from mygramdb_tpu_torch.server.microbatch import MicroBatcher, _Request
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                  generator=gen)))
+    out = {}
+    fused_entry = hasattr(posting_ops, "sparse_probe")
+    # the micro-batcher's sparse program
+    B, C, Ks, Kd, n = 64, 2048, 8, 8, 128
+    h = probe_inputs(rng, B, C, Ks, Kd, W)
+    t = on_card(h)
+    mb = MicroBatcher(_StubIndex(t, W))
+    s = 2 + 3 * Ks
+    reqs = [_Request(rows=[], sparse={
+        "d_off": int(a[0]), "d_len": int(a[1]),
+        "sp_off": a[2:2 + Ks].tolist(), "sp_len": a[2 + Ks:2 + 2 * Ks].tolist(),
+        "sp_inv": (a[2 + 2 * Ks:s] != 0).tolist(),
+        "dn_rows": a[s:s + Kd].tolist(), "dn_inv": (a[s + Kd:] != 0).tolist(),
+        "extra": ()}) for a in h["args"]]
+    key = ("sparse", C, h["Cmax"], Ks, Kd, n, True, False, ())
+
+    def batch():
+        mb._execute_sparse(reqs, key)
+
+    batch()
+    want = probe_reference(h, Ks, Kd, C, h["Cmax"], W)
+    for r, w in zip(reqs, want):
+        check(r.total == w.size and np.array_equal(
+            r.ids, np.concatenate([w[::-1][:n], np.full(max(n - w.size, 0),
+                                                        -1)])),
+              "the sparse program's answer differs from numpy")
+    prof = device_profile(batch)
+    out["sparse program"] = {
+        "call_ms": cuda_ms(batch), "device_ms": prof["device_ms"],
+        "kernels": prof["kernels"], "by_kernel": prof["by_kernel"],
+        "survivors": int(sum(w.size for w in want)),
+        "shape": f"B={B} C={C} Ks={Ks} Kd={Kd} n={n} descending W={W}"}
+    del t, mb
+    # the fused sparse verify's mask and compaction
+    B, C, Kv = 64, 8192, 4096
+    h = probe_inputs(rng, B, C, Ks, Kd, W)
+    t = on_card(h)
+    a = t["args"]
+
+    def selection():
+        if fused_entry:
+            args = runtime.to_device(h["args"], t["postings"].device)
+            buf = posting_ops.sparse_probe(
+                t["postings"], t["bitmaps"], t["deleted"], None, args, Ks=Ks,
+                Kd=Kd, C=C, Cmax=h["Cmax"], n_words=W, form="compact",
+                width=Kv, dense_probes=False)
+            return posting_ops.split_selection(buf, B)
+        from mygramdb_tpu_torch.ops.fused import compact_first_k
+        cols = [runtime.to_device(np.ascontiguousarray(c), a.device)
+                for c in (h["args"][:, 0], h["args"][:, 1],
+                          h["args"][:, 2:2 + Ks], h["args"][:, 2 + Ks:2 + 2 * Ks],
+                          h["args"][:, 2 + 2 * Ks:s] != 0,
+                          h["args"][:, s:s + Kd].astype(np.int32),
+                          h["args"][:, s + Kd:] != 0)]
+        cands, mask = device_index._sparse_mask(
+            t["postings"], t["bitmaps"], t["deleted"], None, *cols, C=C,
+            Cmax=h["Cmax"], n_words=W, dense_probes=False)
+        sel, pre = compact_first_k(cands, mask, Kv)
+        return pre, sel
+
+    pre, sel = selection()
+    ref = probe_reference(h, Ks, 0, C, h["Cmax"], W)
+    pre, sel = pre.cpu().numpy(), sel.cpu().numpy()
+    for i, w in enumerate(ref):
+        check(pre[i] == w.size and np.array_equal(
+            sel[i, :min(w.size, Kv)], w[:Kv]),
+              "the fused mask and compaction differ from numpy")
+    prof = device_profile(selection)
+    out["fused sparse selection"] = {
+        "call_ms": cuda_ms(selection), "device_ms": prof["device_ms"],
+        "kernels": prof["kernels"], "by_kernel": prof["by_kernel"],
+        "clipped": int((pre > Kv).sum()),
+        "shape": f"compact B={B} C={C} Kv={Kv} Ks={Ks} sparse probes W={W}"}
+    del t
+    # the boolean program
+    T, K, S = 3, 4, 2
+    h = tree_inputs(rng, W, T, K, S)
+    t = on_card(h)
+    sig = served_tree(T)
+    bucket = int(h["lens"].max())
+
+    def tree():
+        if hasattr(bitmap_ops, "ast_words"):
+            entry, rows, offs, lens = (bitmap_ops.ast_words, h["rows"],
+                                       h["offs"], h["lens"])
+        else:  # DeviceIndex.ast_words of older trees: three uploads
+            dev = t["bitmaps"].device
+            entry = device_index._ast_words_program
+            rows, offs, lens = (runtime.to_device(h[k], dev)
+                                for k in ("rows", "offs", "lens"))
+        words = entry(sig, t["bitmaps"], t["postings"], t["deleted"],
+                      t["universe"], rows, offs, lens, bucket=bucket,
+                      n_words=W)
+        return words.cpu().numpy().view(np.uint32)
+
+    got = tree()
+    leaves = []
+    for i in range(T):
+        w = np.bitwise_and.reduce(h["bitmaps"][h["rows"][i]], axis=0)
+        for j in range(S):
+            if h["lens"][i, j]:
+                o = int(h["offs"][i, j])
+                ids = h["postings"][o:o + int(h["lens"][i, j])]
+                m = np.zeros(W, np.uint32)
+                np.bitwise_or.at(m, ids >> 5, np.left_shift(
+                    np.uint32(1), (ids & 31).astype(np.uint32)))
+                w = w & m
+        leaves.append(w)
+    want = (leaves[0] | leaves[1]) & (h["universe"] & ~leaves[2])
+    check(np.array_equal(got, want & ~h["deleted"]),
+          "the boolean program's words differ from numpy")
+    prof = device_profile(tree)
+    out["boolean program"] = {
+        "call_ms": cuda_ms(tree), "device_ms": prof["device_ms"],
+        "kernels": prof["kernels"], "by_kernel": prof["by_kernel"],
+        "docs": int(np.unpackbits(got.view(np.uint8)).sum()),
+        "shape": f"T={T} K={K} S={S} W={W} tree={sig}"}
+    del t
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "programs": out,
+          "tree": "probe entry" if fused_entry else "parent"})
     return out
 
 
@@ -1238,7 +1809,8 @@ def expression(node, top: bool = True) -> str:
     return "(" + word.join(expression(c, False) for c in node[1:]) + ")"
 
 
-def make_kind_queries(gen, ctx, ref, texts, groups, seed: int):
+def make_kind_queries(gen, ctx, ref, texts, groups, seed: int,
+                      fuzzy_terms: bool = True):
     """Queries of the boolean, synonym and fuzzy paths for a verify_text
     table. Boolean: the five tree shapes of tests/test_device_ast.py over
     dense, sparse and CJK terms. Synonym: every term of the synonym file,
@@ -1247,7 +1819,7 @@ def make_kind_queries(gen, ctx, ref, texts, groups, seed: int):
     swapped (FUZZY 2), at most 45 of them, and 3-character terms of rare
     kanji (every base gram sparse). A fuzzy term with more than FUZZY_CAP
     candidates is dropped. -> (queries, fuzzy terms dropped for the
-    cap)."""
+    cap). Without fuzzy_terms, no fuzzy query."""
     import numpy as np
     from mygramdb_tpu_torch.utils import textproc
     rng = np.random.default_rng(seed + 3)
@@ -1288,6 +1860,11 @@ def make_kind_queries(gen, ctx, ref, texts, groups, seed: int):
 
     def fuzzy(term, dist):
         return search([term], True, kind="fuzzy", dist=dist)
+
+    if not fuzzy_terms:
+        for q in out:
+            q["line"] = render(q)
+        return out, 0
 
     # the longer the word, the more of its bigrams a candidate must hold
     long_w = [w for w in gen.vocab[:60_000] if len(w) >= 12
@@ -1407,12 +1984,18 @@ def search_or_check(ctx, ref, words) -> dict:
 def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                 conns: int = 64, verified: bool = False,
                 layout: str = "auto", profile_path: str = "",
-                kernels=(), routes_needed=(), kinds: bool = False):
+                kernels=(), routes_needed=(), kinds: bool = False,
+                forms_needed=(), measure_only: bool = False,
+                profile_classes=None):
     """Load docs documents through ``Application``, serve n_queries over
     TCP from conns connections (with kinds, then the boolean, synonym and
     fuzzy queries and the ``search_or`` check), remove rows and re-ask;
-    every answer is checked. kernels and routes_needed must each have
-    served queries in this phase. -> (launches, summary)."""
+    every answer is checked. kernels, routes_needed and forms_needed
+    (launch forms) must each have served queries in this phase.
+    measure_only (the paired profile runs, where the tree served may be an
+    older one): no fuzzy queries, no removals, no launch or route
+    requirements; answers are still checked. profile_classes: a predicate
+    on the class names the profile times alone. -> (launches, summary)."""
     import numpy as np
     from mygramdb_tpu_torch import native
     from mygramdb_tpu_torch.app.application import Application
@@ -1473,8 +2056,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
               and ctx.synonyms.group_count == len(groups),
               "the synonym file was not loaded")
         t0 = time.time()
-        kind_queries, dropped = make_kind_queries(gen, ctx, ref, texts,
-                                                  groups, seed)
+        kind_queries, dropped = make_kind_queries(
+            gen, ctx, ref, texts, groups, seed, fuzzy_terms=not measure_only)
         kind_summary = {"queries": len(kind_queries),
                         "fuzzy_dropped_for_cap": dropped,
                         "make_s": time.time() - t0}
@@ -1497,8 +2080,9 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
             t0 = time.perf_counter()
             kind_results = asyncio.run(drive(srv.port, kind_queries, conns))
             kind_wall = time.perf_counter() - t0
-            kind_summary["search_or"] = search_or_check(
-                ctx, ref, [q["terms"][0] for q in queries[:12]])
+            if not measure_only:
+                kind_summary["search_or"] = search_or_check(
+                    ctx, ref, [q["terms"][0] for q in queries[:12]])
             klat = sorted(s for _, _, s in kind_results)
             by_class = {}
             for q, _, sec in kind_results:
@@ -1517,7 +2101,7 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         hit = sorted({int(p) for _, r, _ in first
                       if r.startswith("OK RESULTS") for p in r.split()[3:]})
         rng = np.random.default_rng(seed + 1)
-        removed = set(int(x) for x in rng.choice(
+        removed = set() if measure_only else set(int(x) for x in rng.choice(
             hit, size=min(100, len(hit)), replace=False))
         again = [q for q, _, _ in first
                  if removed.intersection(ref.ids(q).tolist())]
@@ -1527,8 +2111,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         launches = dict(runtime.launches)
         forms = dict(runtime.launch_forms)
         routes = dict(runtime.routes)
-        k2_shapes = sorted(runtime.launch_shapes["reduce_rows"].items(),
-                           key=lambda kv: -kv[1])
+        shapes = {k: sorted(v.items(), key=lambda kv: -kv[1])
+                  for k, v in runtime.launch_shapes.items()}
         b1 = (batcher.batches_executed, batcher.queries_batched)
         t0 = time.time()
         bad = []
@@ -1570,25 +2154,26 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                                        if r not in ("OK RESULTS 0",
                                                     "OK COUNT 0"))})
             summary["kinds"] = kind_summary
-            summary["reduce_rows_shapes"] = [
-                [*shape, n] for shape, n in k2_shapes[:8]]
+        summary["launch_shapes"] = {k: [[*shape, n] for shape, n in v[:6]]
+                                    for k, v in shapes.items() if v}
         check(not bad, f"{len(bad)} answers differ from the reference, "
                        f"first: {bad[:5]}")
         check(len(results) >= n_queries, "too few queries answered")
         check(summary["nonzero_answers"] > len(results) // 3,
               "too few queries matched anything")
+        if measure_only:
+            kernels = routes_needed = forms_needed = ()
+        for f in forms_needed:
+            check(forms[f] > 0, f"no launch of form {f}: {forms}")
         for k in kernels:
             check(launches[k] > 0,
                   f"{k} was not launched by the served queries: {launches}")
         for r in routes_needed:
             check(routes[r] > 0, f"no query took the {r} route: {routes}")
-        if "reduce_rows" in kernels:
-            for f in ("reduce_rows.and", "reduce_rows.or"):
-                check(forms[f] > 0, f"no K2 launch of form {f}: {forms}")
         if kinds:
             check(kind_summary["nonzero_answers"] > len(kind_results) // 3,
                   "too few boolean, synonym and fuzzy queries matched")
-        if not verified:
+        if not verified and not measure_only:
             # FILTER queries ride K1 as filter rows
             check(forms["dense_and.extra_rows"] > 0,
                   f"no K1 launch carried filter rows: {forms}")
@@ -1603,7 +2188,7 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         emit(summary)
         if profile_path:
             profile_phase(srv.port, ctx, queries + kind_queries,
-                          profile_path, name)
+                          profile_path, name, classes=profile_classes)
     finally:
         asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -1631,11 +2216,12 @@ def query_class(ctx, q: dict) -> str:
 
 
 def profile_phase(port: int, ctx, queries, path: str, serve: str,
-                  per_class: int = 400) -> None:
-    """Each query class with at least 30 queries alone (per_class of them
-    at 64 connections, 60 at one), then torch.profiler over 1,500 mixed
-    queries at 64 connections. Prints and appends one JSON line per row
-    to path."""
+                  per_class: int = 400, classes=None) -> None:
+    """Each query class with at least 30 queries (and, given the predicate
+    ``classes``, a name it accepts) alone, per_class of them at 64
+    connections, 60 at one; then torch.profiler over 1,500 mixed queries
+    at 64 connections. Prints and appends one JSON line per row to
+    path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     batcher = ctx.index.device.batcher
@@ -1651,7 +2237,7 @@ def profile_phase(port: int, ctx, queries, path: str, serve: str,
     for q in queries:
         groups.setdefault(query_class(ctx, q), []).append(q)
     for name, qs in sorted(groups.items(), key=lambda kv: -len(kv[1])):
-        if len(qs) < 30:
+        if len(qs) < 30 or (classes is not None and not classes(name)):
             continue
         for conns, n in ((1, 60), (64, per_class)):
             b0 = (batcher.batches_executed, batcher.queries_batched)
@@ -1683,7 +2269,10 @@ def profile_phase(port: int, ctx, queries, path: str, serve: str,
     put({"phase": "profile", "class": "mix", "connections": 64,
          "queries": len(res), "window_s": wall, "qps": len(res) / wall,
          "device_busy_s": busy, "device_busy_share": busy / wall,
-         "kernel_launches": calls(lambda k: k == "cudaLaunchKernel"),
+         # cluster kernels (K1, K3's probe entry) launch through
+         # cudaLaunchKernelExC
+         "kernel_launches": calls(lambda k: k in ("cudaLaunchKernel",
+                                                  "cudaLaunchKernelExC")),
          "copies": calls(lambda k: k == "cudaMemcpyAsync"),
          "syncs": calls(lambda k: k == "cudaStreamSynchronize")})
     for e in sorted(events, key=lambda e: -dev_us(e))[:25]:
@@ -1706,10 +2295,20 @@ def main(argv=None) -> int:
                     help="after the verified and the unverified serve, "
                          "profile each query class; rows go to PATH")
     ap.add_argument("--kernel-timing", action="store_true",
-                    help="only build the kernels and time K1's dense "
-                         "program and P1 (entry points every tree of the "
-                         "port has, so a copy of this script times an "
-                         "older tree beside it); prints no result line")
+                    help="only build the kernels and time the sparse, "
+                         "fused-sparse and boolean programs (entry points "
+                         "every tree of the port has, so a copy of this "
+                         "script times an older tree beside it) and, where "
+                         "the tree has them, K3's probe entry and K2's "
+                         "tree entry; prints no result line")
+    ap.add_argument("--pair-profile", default="", metavar="PATH",
+                    help="only the verified serve (without fuzzy queries) "
+                         "and the unverified serve, each answer checked, "
+                         "no removals and no launch requirements, with the "
+                         "sparse, boolean and synonym classes profiled "
+                         "into PATH (a copy of this script in an older "
+                         "tree's checkout measures that tree); prints no "
+                         "result line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1727,8 +2326,9 @@ def main(argv=None) -> int:
         return 1
     os.environ["MYGRAM_TORCH_DEVICE"] = "cuda"
     os.environ.setdefault("MYGRAM_ALLOW_ROOT", "1")
-    if args.profile:
-        open(args.profile, "w").close()  # the serves append their rows
+    for path in (args.profile, args.pair_profile):
+        if path:
+            open(path, "w").close()  # the serves append their rows
     t_start = time.time()
     try:
         card = card_line()
@@ -1743,9 +2343,32 @@ def main(argv=None) -> int:
                         if "registers" in ln or "Compiling entry" in ln]})
         gen = torch.Generator().manual_seed(args.seed)
         if args.kernel_timing:
-            emit({"phase": "kernel_timing", "card": card,
-                  "dense_and": dense_topn_phase(gen),
-                  "row_gather": row_gather_phase(gen)})
+            from mygramdb_tpu_torch.ops import posting_ops
+            out = {"phase": "kernel_timing", "card": card,
+                   "programs": program_numbers(gen)}
+            if hasattr(posting_ops, "sparse_probe"):
+                out["sparse_probe"] = {
+                    "topn B=64": sparse_probe_numbers(
+                        gen, "topn", 64, 2048, 8, 8, 128, 3),
+                    "topn B=1": sparse_probe_numbers(
+                        gen, "topn", 1, 2048, 8, 8, 128, 3),
+                    "compact B=64": sparse_probe_numbers(
+                        gen, "compact", 64, 8192, 8, 8, 4096, 1)}
+                out["ast_words"] = ast_words_numbers(gen, 3, 4, 2)
+            emit(out)
+            return 0
+        if args.pair_profile:
+            # the classes whose programs this comparison is about
+            def touched(name):
+                return any(k in name for k in ("sparse", "covered",
+                                               "BOOLEAN", "SYNONYM"))
+            serve_phase("verified_serve", args.docs, args.seed, 1500,
+                        verified=True, profile_path=args.pair_profile,
+                        kinds=True, measure_only=True,
+                        profile_classes=touched)
+            serve_phase("plain_serve", PLAIN_DOCS, args.seed, 2400,
+                        profile_path=args.pair_profile, measure_only=True)
+            emit({"phase": "total", "seconds": time.time() - t_start})
             return 0
         t0 = time.time()
         timings = kernel_phase(gen)
@@ -1753,6 +2376,24 @@ def main(argv=None) -> int:
         # K1's line: the micro-batcher's batched program
         timings["dense_and"].update(k1["topn B=64"])
         k2_at_k1_shape = reduce_rows_phase(gen)
+        probe_checked = sparse_probe_checks(gen)
+        tree_checked = ast_words_checks(gen)
+        emit({"phase": "kernels", "kernel": "sparse_probe (K3)",
+              "checked": probe_checked})
+        emit({"phase": "kernels", "kernel": "ast_words (K2)",
+              "checked": tree_checked})
+        program_numbers(gen)
+        # the new entries' device time at the shapes the serves launch
+        # most (torch.profiler records no device time after a serve, so
+        # these run first; the served shapes are timed again after)
+        pre = [sparse_probe_numbers(gen, *shape) for shape in (
+            ("topn", 1, 2048, 1, 1, 128, 0), ("masked", 1, 512, 8, 8, 512, 0),
+            ("compact", 1, 2048, 1, 1, 2048, 3),
+            ("topn", 64, 2048, 8, 8, 128, 3))]
+        pre += [ast_words_numbers(gen, T, K, S)
+                for T, K, S in ((3, 4, 1), (3, 12, 1), (3, 4, 2))]
+        pre = {r["shape"]: r for r in pre}
+        emit({"phase": "kernels", "pre_serve_timings": pre})
         timings.update(verify_kernel_phase(gen, args.docs))
         timings["row_gather"] = row_gather_phase(gen)
         emit({"phase": "kernels", "seconds": time.time() - t0})
@@ -1761,18 +2402,30 @@ def main(argv=None) -> int:
         got, served = serve_phase(
             "verified_serve", args.docs, args.seed, 1500, verified=True,
             profile_path=args.profile, kinds=True,
-            kernels=("dense_and", "reduce_rows", "slice_gather",
-                     "tf_rows_padded"),
+            kernels=("dense_and", "reduce_rows", "ast_words", "slice_gather",
+                     "sparse_probe", "tf_rows_padded"),
             routes_needed=verified_routes + (
                 "ast_device", "threshold_merge", "threshold_bitmap",
-                "or_rows"))
-        # K2's line: the shape that took most of the served launches
-        op, B, K, W, _ = served["reduce_rows_shapes"][0]
+                "or_rows"),
+            # unions run K2's row reduce; the fused sparse program compacts
+            forms_needed=("reduce_rows.or", "sparse_probe.compact"))
+        shapes = served["launch_shapes"]
+        # K2's lines: the shapes that took most of the served launches
+        op, B, K, W, _ = shapes["reduce_rows"][0]
         timings["reduce_rows"] = reduce_rows_numbers(gen, op, B, K, W)
         emit({"phase": "kernels", "kernel": "reduce_rows (K2)",
               "most_launched_shape": timings["reduce_rows"],
               "at_dense_and_shape": k2_at_k1_shape})
+        T, K, S, _, W, _ = shapes["ast_words"][0]
+        timings["ast_words"] = with_device_ms(
+            ast_words_numbers(gen, T, K, S, W), pre)
+        timings["ast_words"]["max_abs_err"] = tree_checked["max_abs_err"]
+        emit({"phase": "kernels", "kernel": "ast_words (K2)",
+              "most_launched_shape": timings["ast_words"],
+              "served_shapes": shapes["ast_words"]})
         launches["reduce_rows"] = got["reduce_rows"]
+        launches["ast_words"] = got["ast_words"]
+        launches["slice_gather"] = got["slice_gather"]
         check(served["maxT"] == TEXT_MAXT,
               f"the verified serve's maxT is {served['maxT']}: the kernel "
               f"phase checked K6 at rows of {TEXT_MAXT} + NEEDLE_CAP cells")
@@ -1785,18 +2438,28 @@ def main(argv=None) -> int:
         got, _ = serve_phase(
             "flat_verified_serve", FLAT_DOCS, args.seed + 2, 1000,
             verified=True, layout="flat",
-            kernels=("slice_gather", "tf_rows_flat", "tf_rows_flat_global"),
+            kernels=("sparse_probe", "tf_rows_flat", "tf_rows_flat_global"),
             routes_needed=verified_routes)
         launches["tf_rows_flat"] = got["tf_rows_flat"]
         launches["tf_rows_flat_global"] = got["tf_rows_flat_global"]
-        got, _ = serve_phase(
+        got, served = serve_phase(
             "plain_serve", PLAIN_DOCS, args.seed, 2400,
             profile_path=args.profile,
-            kernels=("dense_and", "slice_gather"),
+            kernels=("dense_and", "sparse_probe"),
             routes_needed=("dense_batched", "dense_unbatched",
-                           "sparse_batched"))
+                           "sparse_batched"),
+            forms_needed=("sparse_probe.topn",))
         launches["dense_and"] = got["dense_and"]
-        launches["slice_gather"] = got["slice_gather"]
+        launches["sparse_probe"] = got["sparse_probe"]
+        # K3's probe line: the shape that took most of the served launches
+        form, B, C, Ks, Kd, width, probes, _ = \
+            served["launch_shapes"]["sparse_probe"][0]
+        timings["sparse_probe"] = with_device_ms(sparse_probe_numbers(
+            gen, form, B, C, Ks, Kd, width, probes), pre)
+        timings["sparse_probe"]["max_abs_err"] = probe_checked["max_abs_err"]
+        emit({"phase": "kernels", "kernel": "sparse_probe (K3)",
+              "most_launched_shape": timings["sparse_probe"],
+              "served_shapes": served["launch_shapes"]["sparse_probe"]})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
 // K1: dense row-AND with NOT rows, filter rows, tombstones, popcount and
 // the first n matching doc ids, in one kernel; K2 (below it): the bare row
-// reduce, AND or OR, with nothing folded in.
+// reduce, AND or OR, with nothing folded in, and K2's boolean program: a
+// whole tree of term bitmaps in one kernel.
 //
 // K1
 // --
@@ -53,6 +54,7 @@
 #include <stdint.h>
 
 #include "per_device.cuh"
+#include "warp_ops.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,19 +75,6 @@ __device__ __forceinline__ uint4 bandnot(uint4 a, uint4 b) {
 }
 __device__ __forceinline__ int popc4(uint4 a) {
   return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
-}
-
-__device__ __forceinline__ int warp_sum(int x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
 }
 
 // The query's result vector w: s_rows holds its K row ids, then its Kn NOT
@@ -282,6 +271,164 @@ reduce_rows_kernel(const uint4* __restrict__ bm, int64_t wv,
 }
 
 
+// K2 as the boolean program: a whole tree of term bitmaps in one launch.
+//
+// Replaces what mygramdb_tpu/index/device_index.py::_ast_words_program
+// compiles around _reduce_rows_pallas: the tree's leaves are term bitmaps
+// (bitmap_ops.term_bitmap: the AND of a term's dense rows and of its
+// sparse grams' posting slices scattered into words), combined by AND, OR
+// and NOT against `universe`, then cleared of tombstones:
+//
+//   leaf[t][w] = AND_k bm[rows[t, k], w]
+//                & AND_s (lens[t, s] > 0 ? words of slice (offs, lens)[t, s]
+//                         : real[t, s] ? 0 : ~0)
+//   out[w]     = tree(leaf, universe)[w] & ~deleted[w]
+//
+// A slice is gathered as K3 gathers it: its first min(len, bucket) entries,
+// masked at P; ids outside [0, 32 W) set no bit. The JAX package clears the
+// tombstones from each leaf as well; every operation is bitwise, so a bit
+// that the last step clears never needs clearing before it.
+//
+// The tree arrives as a postfix program: op >= 0 pushes leaf op, kOpAnd and
+// kOpOr combine the two top entries, kOpNot replaces the top x with
+// universe & ~x. The host emits each n-ary node left to right, combining
+// as it goes, so the stack holds at most the tree's depth + 1 entries
+// (`depth`; the parser bounds trees at 32 levels).
+//
+// What bounds it: bytes. Each leaf's K rows over W words, each slice's
+// entries once, `universe` and `deleted` once, W words written. The TPU
+// program wrote every leaf's words, a (T x S, W + 1) scatter tensor and
+// every node's words to device memory; here a block takes a span of
+// span_v 16-byte vectors (one a thread) and keeps everything in shared
+// memory:
+// - the stack, depth x span_v vectors; each thread only ever touches its
+//   own vector of each entry, so the word algebra needs no barrier;
+// - a leaf's dense rows: K 16-byte loads a thread, unrolled so they are in
+//   flight together;
+// - a slice: its entries in the span's doc range, found by two warp-wide
+//   lower bounds (computed for up to `cached` slices at once, before the
+//   program runs, by all warps), set into a span of scratch words with
+//   shared-memory atomicOr, then AND'ed into the thread's vector.
+// Spans loop over the grid; a deep tree shrinks span_v so that its stack
+// fits, it is never refused.
+constexpr int kAstThreads = 128;
+constexpr int kAstWarps = kAstThreads / 32;
+constexpr int kOpAnd = -1, kOpOr = -2, kOpNot = -3;
+
+__device__ __forceinline__ void slice_window(
+    const int32_t* __restrict__ post, int64_t P, int64_t off, int64_t len,
+    int64_t bucket, int64_t doc_lo, int64_t doc_hi, int lane, int64_t* a,
+    int64_t* z) {
+  const int64_t s = off < 0 ? 0 : off;
+  int64_t e = off + (len < bucket ? len : bucket);
+  if (e > P) e = P;
+  if (e < s) e = s;
+  warp_lower_bounds(post, s, e, doc_lo, doc_hi, lane, a, z);
+}
+
+// args: rows (T, K), offs (T, S), lens (T, S), real (T, S), prog (nprog),
+// all int64, one after the other.
+__global__ void __launch_bounds__(kAstThreads)
+ast_words_kernel(const uint4* __restrict__ bm, int64_t wv,
+                 const int32_t* __restrict__ post, int64_t P,
+                 const uint4* __restrict__ deleted,
+                 const uint4* __restrict__ universe,
+                 const int64_t* __restrict__ args, int T, int K, int S,
+                 int nprog, int depth, int64_t bucket, int span_v,
+                 int cached, uint4* __restrict__ out) {
+  extern __shared__ uint4 s_ast[];
+  uint4* s_stack = s_ast;                                  // depth x span_v
+  uint32_t* s_tmp = reinterpret_cast<uint32_t*>(s_stack + (int64_t)depth *
+                                                span_v);  // span_v x 4
+  int64_t* s_win = reinterpret_cast<int64_t*>(s_tmp + span_v * 4);
+  __shared__ int64_t s_one[2];
+  const int64_t* rows = args;
+  const int64_t* offs = rows + (int64_t)T * K;
+  const int64_t* lens = offs + (int64_t)T * S;
+  const int64_t* real = lens + (int64_t)T * S;
+  const int64_t* prog = real + (int64_t)T * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4* s_tmp4 = reinterpret_cast<uint4*>(s_tmp);
+  for (int64_t v0 = (int64_t)blockIdx.x * span_v; v0 < wv;
+       v0 += (int64_t)gridDim.x * span_v) {
+    const int m = (int)(wv - v0 < span_v ? wv - v0 : span_v);
+    const bool own = tid < m;
+    const int64_t v = v0 + tid;
+    const int64_t doc_lo = v0 * 128, doc_hi = (v0 + m) * 128;
+    __syncthreads();  // the previous span's scratch and windows are not read
+    for (int i = tid; i < span_v * 4; i += kAstThreads) s_tmp[i] = 0u;
+    for (int sl = warp; sl < cached; sl += kAstWarps) {
+      int64_t a = 0, z = 0;
+      if (__ldg(lens + sl) > 0)
+        slice_window(post, P, __ldg(offs + sl), __ldg(lens + sl), bucket,
+                     doc_lo, doc_hi, lane, &a, &z);
+      if (lane == 0) {
+        s_win[2 * sl] = a;
+        s_win[2 * sl + 1] = z;
+      }
+    }
+    __syncthreads();
+    int sp = 0;
+    for (int pc = 0; pc < nprog; ++pc) {
+      const int op = (int)__ldg(prog + pc);
+      uint4* top = s_stack + (int64_t)(sp - 1) * span_v + tid;
+      if (op == kOpNot) {
+        if (own) *top = bandnot(__ldg(universe + v), *top);
+        continue;
+      }
+      if (op == kOpAnd || op == kOpOr) {
+        if (own) top[-span_v] = op == kOpAnd ? band(top[-span_v], *top)
+                                             : bor(top[-span_v], *top);
+        --sp;
+        continue;
+      }
+      uint4 acc = make_uint4(~0u, ~0u, ~0u, ~0u);
+      if (own) {
+        const int64_t* r = rows + (int64_t)op * K;
+#pragma unroll 8
+        for (int k = 0; k < K; ++k)
+          acc = band(acc, __ldg(bm + __ldg(r + k) * wv + v));
+      }
+      for (int s = 0; s < S; ++s) {
+        const int sl = op * S + s;
+        if (__ldg(lens + sl) == 0) {
+          if (__ldg(real + sl) != 0) acc = zero;
+          continue;
+        }
+        int64_t a, z;
+        if (sl < cached) {
+          a = s_win[2 * sl];
+          z = s_win[2 * sl + 1];
+        } else {
+          if (warp == 0) {
+            slice_window(post, P, __ldg(offs + sl), __ldg(lens + sl),
+                         bucket, doc_lo, doc_hi, lane, &a, &z);
+            if (lane == 0) {
+              s_one[0] = a;
+              s_one[1] = z;
+            }
+          }
+          __syncthreads();
+          a = s_one[0];
+          z = s_one[1];
+        }
+        for (int64_t p = a + tid; p < z; p += kAstThreads) {
+          const int64_t d = __ldg(post + p) - doc_lo;
+          atomicOr(&s_tmp[d >> 5], 1u << (d & 31));
+        }
+        __syncthreads();
+        if (own) acc = band(acc, s_tmp4[tid]);
+        if (tid < span_v) s_tmp4[tid] = zero;
+        __syncthreads();  // cleared before the next slice, s_one read
+      }
+      if (own) s_stack[(int64_t)sp * span_v + tid] = acc;
+      ++sp;
+    }
+    if (own) out[v] = bandnot(s_stack[tid], __ldg(deleted + v));
+  }
+}
+
 // Each device's set-up of K1: its SM count, the dynamic shared memory a
 // block may use (raised on the kernel), and whether a cluster of 16 blocks
 // launches there (a non-portable size).
@@ -328,6 +475,23 @@ cudaError_t topn_limits(TopnSetup* out) {
       s.allow16 = allow16;
     }
     *out = s;
+    return cudaSuccess;
+  });
+}
+
+// Each device's dynamic shared-memory limit of the boolean program.
+PerDevice<int> ast_optin;
+
+cudaError_t ast_limit(int* out) {
+  return ast_optin.with([&](int dev, int& optin) {
+    if (optin == 0) {
+      int sms = 0, max_optin = 0;
+      cudaError_t e = device_limits(dev, &sms, &max_optin);
+      if (e == cudaSuccess)
+        e = raise_smem_limit(ast_words_kernel, max_optin, &optin);
+      if (e != cudaSuccess) return e;
+    }
+    *out = optin;
     return cudaSuccess;
   });
 }
@@ -406,6 +570,43 @@ extern "C" int mygram_reduce_rows(const void* bm, long long W, const void* rows,
       reduce_rows_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
           (const uint4*)bm, wv, (const int32_t*)rows, K, (uint4*)out, B);
   }
+  return (int)cudaGetLastError();
+}
+
+// bm (V, W), deleted (W,), universe (W,), out (W,) int32 words, W a
+// multiple of 4 and each 16-byte aligned; postings (P,) int32; args int64:
+// rows (T, K), offs (T, S), lens (T, S), real (T, S) (0 or 1) and the
+// postfix program (nprog ops), whose stack needs `depth` entries. Returns
+// cudaGetLastError() after the launch (or the set-up's error).
+extern "C" int mygram_ast_words(const void* bm, long long W,
+                                const void* postings, long long P,
+                                const void* deleted, const void* universe,
+                                const void* args, int T, int K, int S,
+                                int nprog, int depth, long long bucket,
+                                void* out, void* stream) {
+  if (W <= 0 || nprog <= 0) return (int)cudaGetLastError();
+  int optin = 0;
+  cudaError_t e = ast_limit(&optin);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t wv = W / 4;
+  // the widest span whose stack and scratch fit beside the windows of as
+  // many slices as fit (all of them, as a rule)
+  int64_t cached = (int64_t)T * S;
+  int span_v = kAstThreads;
+  const auto smem = [&](int sv, int64_t c) {
+    return ((size_t)depth + 1) * sv * 16 + (size_t)c * 16;
+  };
+  if (cached > 1024) cached = 1024;
+  while (span_v > 1 && smem(span_v, cached) > (size_t)optin) span_v >>= 1;
+  while (cached > 0 && smem(span_v, cached) > (size_t)optin) cached >>= 1;
+  if (smem(span_v, cached) > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (wv + span_v - 1) / span_v;
+  ast_words_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535),
+                     kAstThreads, smem(span_v, cached),
+                     (cudaStream_t)stream>>>(
+      (const uint4*)bm, wv, (const int32_t*)postings, P,
+      (const uint4*)deleted, (const uint4*)universe, (const int64_t*)args, T,
+      K, S, nprog, depth, bucket, span_v, (int)cached, (uint4*)out);
   return (int)cudaGetLastError();
 }
 

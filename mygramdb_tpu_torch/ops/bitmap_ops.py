@@ -14,9 +14,11 @@ words); ``_dense_and_topn_plain`` is its plain PyTorch version
 (``_dense_query_plain`` then ``topn_words``).
 The bare row reduce (AND or OR, nothing folded in) is K2, in the same
 source, behind ``reduce_rows`` / ``and_rows`` / ``or_rows``, with
-``_reduce_rows_plain`` beside it; every row reduce of the boolean path goes
-through it. The word algebra and the posting scatter of that path are torch
-ops, as they are XLA ops in the JAX package.
+``_reduce_rows_plain`` beside it (``search_or`` takes it). A whole boolean
+tree (every leaf's dense rows and scattered posting slices, the word
+algebra over them) is K2's second entry, ``ast_words``, one launch, with
+``_ast_words_plain`` beside it: ``_term_bitmaps`` (one K2 and one K3
+launch) and the tree walked over tensors.
 The top-n stages were never Pallas in the JAX package; here K1 takes them
 on the card, and ``topn_words`` (plain torch) serves the plain version and
 ``topn_from_bitmap``: the same ids in the same order, -1 padded.
@@ -433,6 +435,129 @@ def term_bitmap(bitmaps: torch.Tensor, rows: torch.Tensor,
     return _term_bitmaps(bitmaps, rows[None], postings, offs[None],
                          lens[None], deleted, bucket=bucket, n_words=n_words,
                          real=None if real is None else real[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# K2 as the boolean program: a whole tree in one launch
+# ---------------------------------------------------------------------------
+
+AST_AND, AST_OR, AST_NOT = -1, -2, -3  # postfix ops; op >= 0 pushes leaf op
+
+
+def ast_program(sig: tuple):
+    """A tree ``sig`` (('t', i) | ('&', ...) | ('|', ...) | ('!', child))
+    as a postfix program -> (ops list, the stack entries it needs). Each
+    n-ary node combines its children left to right as they arrive, so the
+    stack never holds more than the tree's depth + 1 entries."""
+    ops: list = []
+    top = need = 0
+
+    def emit(node):
+        nonlocal top, need
+        tag = node[0]
+        if tag == "t":
+            ops.append(int(node[1]))
+            top += 1
+            need = max(need, top)
+        elif tag == "!":
+            emit(node[1])
+            ops.append(AST_NOT)
+        else:
+            emit(node[1])
+            for ch in node[2:]:
+                emit(ch)
+                ops.append(AST_AND if tag == "&" else AST_OR)
+                top -= 1
+
+    emit(sig)
+    return ops, need
+
+
+def _ast_words_plain(sig: tuple, bitmaps, postings, deleted, universe, rows,
+                     offs, lens, *, bucket: int, n_words: int, real=None):
+    """Plain PyTorch version of the boolean program (same signature as
+    ``ast_words``): ``_term_bitmaps`` for the leaves (one K2 launch, one
+    K3 launch on the card), then the tree walked over tensors."""
+    dev = bitmaps.device
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+    leaves = _term_bitmaps(bitmaps, t(rows, torch.int32), postings,
+                           t(offs, torch.int64), t(lens, torch.int64),
+                           deleted, bucket=bucket, n_words=n_words,
+                           real=None if real is None else t(real, torch.bool))
+
+    def build(node):
+        tag = node[0]
+        if tag == "t":
+            return leaves[node[1]]
+        if tag == "!":
+            return bm_andnot(universe, build(node[1]))
+        out = build(node[1])
+        for ch in node[2:]:
+            out = (bm_and if tag == "&" else bm_or)(out, build(ch))
+        return out
+
+    # the leaves are cleared of tombstones; a NOT brings them back
+    return bm_andnot(build(sig), deleted)
+
+
+def ast_words(sig: tuple, bitmaps: torch.Tensor, postings: torch.Tensor,
+              deleted: torch.Tensor, universe: torch.Tensor, rows, offs,
+              lens, *, bucket: int, n_words: int, real=None) -> torch.Tensor:
+    """The boolean program: a whole tree of term bitmaps -> (W,) int32
+    words. Leaf i is ``term_bitmap`` of rows[i] (K dense rows, padded with
+    the all-ones row) and offs[i], lens[i] (S sparse slices, a slot of
+    length 0 the AND identity, or zeros where ``real`` marks it); ``sig``
+    combines the leaves ('&', '|', '!' against ``universe``); tombstones
+    cleared. rows (T, K), offs and lens (T, S) and real (T, S) are host
+    arrays (numpy or CPU tensors); bitmaps, postings, deleted and universe
+    live on the device.
+
+    CPU tensors take the plain version; on the card the small arguments
+    and the postfix program (``ast_program``) go up as one int64 upload
+    and one launch evaluates the tree: W must be a multiple of 4 and the
+    word vectors 16-byte aligned."""
+    if bitmaps.device.type == "cpu":
+        return _ast_words_plain(sig, bitmaps, postings, deleted, universe,
+                                rows, offs, lens, bucket=bucket,
+                                n_words=n_words, real=real)
+    runtime.require_cuda("ast_words", bitmaps, postings, deleted, universe)
+    words = (bitmaps, deleted, universe)
+    if (postings.dtype != torch.int32
+            or any(w.dtype != torch.int32 for w in words)
+            or not all(x.is_contiguous() for x in words + (postings,))):
+        raise runtime.kernel_error("ast_words: contiguous int32 tensors")
+    W = bitmaps.shape[1]
+    if (deleted.shape != (W,) or universe.shape != (W,)
+            or W % 4 or any(w.data_ptr() % 16 for w in words)):
+        raise runtime.kernel_error(
+            f"ast_words: W={W} must be a multiple of 4 words, the word "
+            "vectors (W,) and 16-byte aligned")
+    rows = np.asarray(rows, dtype=np.int64)
+    offs = np.asarray(offs, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    T, K = rows.shape
+    S = offs.shape[1]
+    if K == 0 or lens.shape != (T, S):
+        raise runtime.kernel_error("ast_words: rows (T, K >= 1), offs and "
+                                   "lens (T, S)")
+    real = (np.zeros((T, S), dtype=np.int64) if real is None
+            else np.asarray(real, dtype=np.int64).reshape(T, S))
+    ops, need = ast_program(sig)
+    if any(op >= T for op in ops):
+        raise runtime.kernel_error("ast_words: a leaf past the T rows")
+    args = runtime.to_device(np.concatenate(
+        [rows.ravel(), offs.ravel(), lens.ravel(), real.ravel(),
+         np.asarray(ops, dtype=np.int64)]), bitmaps.device)
+    out = torch.empty(W, dtype=torch.int32, device=bitmaps.device)
+    err = runtime.launch_on(
+        bitmaps, runtime.kernels().mygram_ast_words, bitmaps.data_ptr(), W,
+        postings.data_ptr(), postings.shape[0], deleted.data_ptr(),
+        universe.data_ptr(), args.data_ptr(), T, K, S, len(ops), need,
+        bucket, out.data_ptr())
+    runtime.check_launch(err, "ast_words", shape=(T, K, S, len(ops), W))
+    return out
 
 
 # the JAX package's final reduction of a tree; nothing calls it there

@@ -3,10 +3,11 @@ match -> compact -> window TF -> verify -> count or BM25 -> top-n, one
 program per batch.
 
 1. dense AND over bitmap rows (K1), or the rarest sparse term's CSR slice
-   (K3) probed by the other grams;
-2. compact the first Kv matching candidates (rank scatter); ``pre`` is the
-   match count before the verify, and pre > Kv means the compaction
-   clipped: the caller re-runs that query on the exact path;
+   probed by the other grams (K3's probe entry);
+2. compact the first Kv matching candidates (in the same launch as step
+   1: K1 takes the first ids, K3's probe compacts); ``pre`` is the match
+   count before the verify, and pre > Kv means the compaction clipped:
+   the caller re-runs that query on the exact path;
 3. per-candidate, per-needle window term frequencies through the kernel
    family of ``csrc/verify_tf.cu``: the flat pack rows (K4), the flat pack
    packed across the batch into a live prefix (K5), or the padded matrix
@@ -14,7 +15,8 @@ program per batch.
 4. verified count and the top n by doc id, or by BM25 (score descending,
    then doc id descending).
 
-Only (pre, count, n ids [, n scores]) per query come back to the host.
+Only (pre, count, n ids [, n scores]) per query come back to the host,
+in one pull; the batch's host arguments go up in one upload each.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import torch
 
 from . import runtime
 from .bitmap_ops import dense_and_topn
-from .posting_ops import SENTINEL, mask_to_topn
+from .posting_ops import (SENTINEL, compact_first_k,  # noqa: F401
+                          mask_to_topn, pack_sparse_args, sparse_probe,
+                          split_selection)
 from .verify_ops import (bm25_scores, cast_needles_i32, needle_cap_bucket,
                          sort_by_score, tf_rows_flat, tf_rows_flat_global,
                          tf_rows_padded)
@@ -36,21 +40,6 @@ from .verify_ops import (bm25_scores, cast_needles_i32, needle_cap_bucket,
 # same work without the packing pass. The JAX package's value, kept so
 # both packages route alike until it is re-measured on the card.
 _SCAN_CHUNK = 16384
-
-
-def compact_first_k(cands: torch.Tensor, mask: torch.Tensor, Kv: int):
-    """First Kv masked candidates of each row (input order), SENTINEL
-    padded, by a rank scatter. cands/mask (B, C) -> (sel (B, Kv) int32,
-    pre (B,) int32)."""
-    B = cands.shape[0]
-    m = mask.to(torch.int32)
-    rank = torch.cumsum(m, dim=1, dtype=torch.int32) - 1
-    pre = m.sum(dim=1, dtype=torch.int32)
-    idx = torch.where(mask & (rank < Kv), rank, Kv).long()
-    sel = torch.full((B, Kv + 1), SENTINEL, dtype=torch.int32,
-                     device=cands.device)
-    sel.scatter_(1, idx, cands.to(torch.int32))  # slot Kv takes the rest
-    return sel[:, :Kv], pre
 
 
 def _reduce_from_tf(sel, tf, doc_len, needle_lens, idf, k1, b, avgdl, *,
@@ -171,11 +160,11 @@ def _search_verify_topn_batch(bitmaps, rows, deleted, extra, store, ndl,
     return pre, count, ids, scores
 
 
-def _sparse_search_verify_topn_batch(postings, bitmaps, deleted, d_off,
-                                     d_len, sp_off, sp_len, sp_inv, dn_rows,
-                                     dn_inv, extra, store, ndl, nlen, idf,
-                                     k1, b, avgdl, *, C: int, Cmax: int,
-                                     Kv: int, n: int, Nn: int, maxT: int,
+def _sparse_search_verify_topn_batch(postings, bitmaps, deleted, args,
+                                     extra, store, ndl, nlen, idf, k1, b,
+                                     avgdl, *, Ks: int, Kd: int, C: int,
+                                     Cmax: int, Kv: int, n: int, Nn: int,
+                                     maxT: int,
                                      descending: bool, score_mode: bool,
                                      n_words: int, cap: int,
                                      nonoverlap: bool = False,
@@ -184,8 +173,10 @@ def _sparse_search_verify_topn_batch(postings, bitmaps, deleted, d_off,
                                      use_range: bool = True,
                                      global_pack: int = 0):
     """Sparse-driver fused verified search, batched: each query's rarest
-    term's CSR slice (K3) is its candidate vector, probed by the other
-    grams, compacted to the first Kv survivors and verified.
+    term's CSR slice is its candidate vector, probed by the other grams
+    and compacted to the first Kv survivors (one launch of K3's probe
+    entry; ``args`` is ``pack_sparse_args``'s matrix on the device), then
+    verified.
 
     Probe-free: when the slice fits the verify width and the dense probes
     are off, the window verify subsumes every gram probe (text containing
@@ -194,17 +185,14 @@ def _sparse_search_verify_topn_batch(postings, bitmaps, deleted, d_off,
     the sparse probes, so that fewer candidates clip.
     -> (pre, count, ids, scores or None); pre > Kv means the compaction
     clipped and that query must take the exact path."""
-    from ..index.device_index import _sparse_mask
     probeless = (not use_dense_probes) and C <= Kv
-    cands, mask = _sparse_mask(
-        postings, bitmaps, deleted, extra, d_off, d_len, sp_off, sp_len,
-        sp_inv, dn_rows, dn_inv, C=C, Cmax=Cmax, n_words=n_words,
-        sparse_probes=not probeless, dense_probes=use_dense_probes)
-    if probeless and Kv == C:  # the driver slice is the candidate vector
-        sel_all = torch.where(mask, cands, SENTINEL)
-        pre = mask.sum(dim=1, dtype=torch.int32)
-    else:
-        sel_all, pre = compact_first_k(cands, mask, Kv)
+    # probeless at Kv == C: the driver slice is the candidate vector
+    form = "masked" if probeless and Kv == C else "compact"
+    buf = sparse_probe(postings, bitmaps, deleted, extra, args, Ks=Ks,
+                       Kd=Kd, C=C, Cmax=Cmax, n_words=n_words, form=form,
+                       width=Kv, sparse_probes=not probeless,
+                       dense_probes=use_dense_probes)
+    pre, sel_all = split_selection(buf, args.shape[0])
     count, ids, scores = _verify_stage(
         sel_all, store, ndl, nlen, idf, k1, b, avgdl, Kv=Kv, n=n, Nn=Nn,
         maxT=maxT, cap=cap, descending=descending, score_mode=score_mode,
@@ -245,18 +233,29 @@ def _global_pack_policy(text_store, B: int, Kv: int, nonoverlap: bool,
 def _needle_tensors(store, needles, needle_lens, idf, cap: int, dev):
     """(B, Nn, CAP) uint32 needles, (B, Nn) lengths and idf (numpy) ->
     (ndl (B, Nn*cap) int32, nlen (B, Nn) int32, idf (B, Nn) float32) on
-    the device."""
+    the device, views of one upload."""
     ndl = cast_needles_i32(needles, store.dtype, cap)
-    return (runtime.to_device(ndl, dev),
-            runtime.to_device(np.asarray(needle_lens, dtype=np.int32), dev),
-            runtime.to_device(np.asarray(idf, dtype=np.float32), dev))
+    nlen = np.asarray(needle_lens, dtype=np.int32)
+    idf = np.ascontiguousarray(idf, dtype=np.float32)
+    buf = runtime.to_device(np.concatenate(
+        [ndl.ravel(), nlen.ravel(), idf.view(np.int32).ravel()]), dev)
+    a, c = ndl.size, ndl.size + nlen.size
+    return (buf[:a].view(ndl.shape), buf[a:c].view(nlen.shape),
+            buf[c:].view(torch.float32).view(idf.shape))
 
 
 def _to_host(pre, count, ids, scores, score_mode: bool):
-    out = [pre.cpu().numpy(), count.cpu().numpy(), ids.cpu().numpy()]
+    """The batch's (pre, count, ids[, scores]) in one pull (scores travel
+    as their int32 bit pattern)."""
+    parts = [pre[:, None], count[:, None], ids.to(torch.int32)]
     if score_mode:
-        out.append(scores.cpu().numpy())
-    return tuple(out)
+        parts.append(scores.view(torch.int32))
+    out = torch.cat(parts, dim=1).cpu().numpy()
+    n = ids.shape[1]
+    res = [out[:, 0], out[:, 1], out[:, 2:2 + n]]
+    if score_mode:
+        res.append(out[:, 2 + n:].view(np.float32))
+    return tuple(res)
 
 
 def sparse_search_verify_topn_batch(postings, bitmaps, deleted, d_off,
@@ -288,15 +287,14 @@ def sparse_search_verify_topn_batch(postings, bitmaps, deleted, d_off,
     ndl, nlen, idf_t = _needle_tensors(text_store, needles, needle_lens, idf,
                                        cap, dev)
     vbound = int(np.minimum(d_len, Kv).sum())
-
-    def t(a, dtype):
-        return runtime.to_device(np.asarray(a, dtype=dtype), dev)
-
+    args = pack_sparse_args(d_off, d_len, sp_off, sp_len, sp_inv, dn_rows,
+                            dn_inv)
     res = _sparse_search_verify_topn_batch(
-        postings, bitmaps, deleted, t(d_off, np.int64), t(d_len, np.int64),
-        t(sp_off, np.int64), t(sp_len, np.int64), t(sp_inv, bool),
-        t(dn_rows, np.int32), t(dn_inv, bool), extra, text_store, ndl, nlen,
-        idf_t, k1, b, avgdl, C=C, Cmax=Cmax, Kv=Kv, n=n, Nn=Nn, maxT=maxT,
+        postings, bitmaps, deleted, runtime.to_device(args, dev), extra,
+        text_store, ndl, nlen, idf_t, k1, b, avgdl,
+        Ks=np.asarray(sp_off).reshape(B, -1).shape[1],
+        Kd=np.asarray(dn_rows).reshape(B, -1).shape[1], C=C, Cmax=Cmax,
+        Kv=Kv, n=n, Nn=Nn, maxT=maxT,
         descending=descending, score_mode=score_mode, n_words=n_words,
         cap=cap, nonoverlap=nonoverlap, use_dense_probes=use_dense_probes,
         require_match=require_match,

@@ -9,9 +9,13 @@
   wrapper where it launches the kernel and nowhere else; ``launch_forms``
   counts the K1 launches that carry NOT rows or filter rows or take the
   first n doc ids (``dense_and.topn``), the K2
-  launches by their operation, the window-TF launches in non-overlapping
+  launches by their operation, the sparse-probe launches by their output
+  (``sparse_probe.topn`` / ``.compact`` / ``.masked``) and those that
+  probe nothing (``.probe_free``), the window-TF launches in non-overlapping
   mode and the K6 launches that read whole matrix rows (the text store's
-  calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W);
+  calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W),
+  the sparse-probe launches by (form, B, C, Ks, Kd, width, probes) and
+  the boolean-program launches by (T, K, S, ops, W);
   ``routes`` counts the queries each device route of the index served.
 - ``kernel_error``: what a wrapper raises when its kernel refuses its
   inputs or fails to launch (see ``errors.py``).
@@ -90,7 +94,8 @@ dispatches = _DispatchCounter()
 
 # kernel name -> launches; reset by callers that measure a window
 launches: Dict[str, int] = {"dense_and": 0, "reduce_rows": 0,
-                            "slice_gather": 0, "tf_rows_flat": 0,
+                            "ast_words": 0, "slice_gather": 0,
+                            "sparse_probe": 0, "tf_rows_flat": 0,
                             "tf_rows_flat_global": 0, "tf_rows_padded": 0,
                             "row_gather": 0}
 # launches by the optional inputs or modes they carried
@@ -98,11 +103,17 @@ launch_forms: Dict[str, int] = {"dense_and.not_rows": 0,
                                 "dense_and.extra_rows": 0,
                                 "dense_and.topn": 0,
                                 "reduce_rows.and": 0, "reduce_rows.or": 0,
+                                "sparse_probe.topn": 0,
+                                "sparse_probe.compact": 0,
+                                "sparse_probe.masked": 0,
+                                "sparse_probe.probe_free": 0,
                                 "tf_rows.nonoverlap": 0,
                                 "tf_rows_padded.whole_rows": 0}
 # kernel name -> {shape of the call: launches}, for the kernels whose
 # reported shape is the one the served queries launched most
-launch_shapes: Dict[str, Dict[tuple, int]] = {"reduce_rows": {}}
+launch_shapes: Dict[str, Dict[tuple, int]] = {"reduce_rows": {},
+                                               "sparse_probe": {},
+                                               "ast_words": {}}
 # device route -> queries it served (bumped where the route runs):
 # fused_dense / fused_sparse are the fused verified programs, fused_clipped
 # the queries they handed back to the exact path (pre > Kv), verify_exact
@@ -215,6 +226,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mygram_gather_rows.restype = i32
     lib.mygram_slice_gather.argtypes = [p, i64, p, p, i32, i32, p, p]
     lib.mygram_slice_gather.restype = i32
+    lib.mygram_sparse_probe.argtypes = [p, i64, p, i64, p, p, i32, p, i32,
+                                        i32, i32, i32, i32, i32, p, i64, p,
+                                        i64, i32, i32, i32, p]
+    lib.mygram_sparse_probe.restype = i32
+    lib.mygram_ast_words.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32,
+                                     i32, i32, i64, p, p]
+    lib.mygram_ast_words.restype = i32
     lib.mygram_tf_rows.argtypes = [p, i32, i64, p, p, p, p, p, p,
                                    i32, i32, i32, i32, i32, i32, i32, i32,
                                    i32, p, p]

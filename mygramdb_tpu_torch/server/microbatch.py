@@ -7,13 +7,14 @@ thread of whichever waiter flushes the queue. Program families:
 - **dense**: PK-sorted dense AND SEARCH -> ``dense_search_topn_packed``
   (the row-AND kernel K1 + top-n), grouped per (limit bucket, direction,
   filter rows).
-- **sparse**: candidate-probe queries -> ``_sparse_query_batch`` (the
-  slice-gather kernel K3 + probes + top-n), grouped per shape bucket and
-  probe-free flag.
+- **sparse**: candidate-probe queries -> ``posting_ops.sparse_probe``
+  (K3's probe entry: driver gather, probes and top-n in one launch, the
+  batch's arguments in one upload and its answer in one pull), grouped
+  per shape bucket and probe-free flag.
 - **fusedv** / **fusedsv**: the fused verified search with a dense or a
-  sparse driver (``ops.fused``: K1 or K3, then the window-TF kernels K4,
-  K5 or K6), grouped per shape, needle bucket, scoring parameters and
-  filter rows.
+  sparse driver (``ops.fused``: K1 or K3's probe entry, then the
+  window-TF kernels K4, K5 or K6), grouped per shape, needle bucket,
+  scoring parameters and filter rows.
 
 PyTorch runs eagerly, so a batch is not padded to a bucketed width (the
 JAX package pads B and K only to bound its set of compiled programs, and
@@ -356,7 +357,7 @@ class MicroBatcher:
                      out[3] if score_mode else None, Kv)
 
     def _execute_sparse(self, q: List[_Request], key: tuple) -> None:
-        from ..index.device_index import _sparse_query_batch
+        from ..ops.posting_ops import pack_sparse_args, sparse_probe
         idx = self.idx
         _, C, Cmax, Ks, Kd, limit_b, descending, probe_free, _eids = key
         B = len(q)
@@ -377,20 +378,17 @@ class MicroBatcher:
             dn_rows[i] = s["dn_rows"]
             dn_inv[i] = s["dn_inv"]
         runtime.dispatches.bump()
-        extra = self._extra(q)
-        dev = idx._device
-        count, ids = _sparse_query_batch(
-            idx.postings, idx.bitmaps, idx.deleted,
-            runtime.to_device(d_off, dev), runtime.to_device(d_len, dev),
-            runtime.to_device(sp_off, dev), runtime.to_device(sp_len, dev),
-            runtime.to_device(sp_inv, dev), runtime.to_device(dn_rows, dev),
-            runtime.to_device(dn_inv, dev),
-            idx._pack_extra([]) if extra is None else extra,
-            C=C, Cmax=Cmax, limit_b=limit_b, descending=descending,
-            n_words=idx.n_words, has_extra=extra is not None,
-            probe_free=probe_free)
-        count_np = count.cpu().numpy()
-        ids_np = ids.cpu().numpy()
+        # one upload of the batch's arguments, one launch, one pull
+        args = runtime.to_device(pack_sparse_args(
+            d_off, d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv),
+            idx._device)
+        out = sparse_probe(
+            idx.postings, idx.bitmaps, idx.deleted, self._extra(q), args,
+            Ks=Ks, Kd=Kd, C=C, Cmax=Cmax, n_words=idx.n_words, form="topn",
+            width=limit_b, descending=descending,
+            sparse_probes=not probe_free,
+            dense_probes=not probe_free).cpu().numpy()
+        count_np, ids_np = out[:, 0], out[:, 1:]
         self.batches_executed += 1
         self.sparse_batches += 1
         self.queries_batched += B

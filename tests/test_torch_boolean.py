@@ -310,3 +310,143 @@ def test_warmup_runs_the_tree_program(pair):
     runtime.reset_launches()
     tdev.warmup()
     assert runtime.routes["ast_device"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The boolean program: K2's tree entry (``bitmap_ops.ast_words``, on the
+# CPU its plain version) against the JAX package's tree program
+# ---------------------------------------------------------------------------
+
+MAX_DEPTH = 32  # query/ast.py: the parser's bound on nesting
+
+
+def deep_tree(depth, n_leaves):
+    """A chain ``depth`` nodes deep that cycles AND, OR and NOT, every
+    level also holding a leaf, so the stack grows with the depth."""
+    node = ("t", 0)
+    for i in range(depth - 1):
+        tag = "&|!"[i % 3]
+        node = ("!", node) if tag == "!" else (tag, ("t", (i + 1) % n_leaves),
+                                              node)
+    return node
+
+
+def tree_depth(node):
+    return 1 + max((tree_depth(c) for c in node[1:]
+                    if isinstance(c, tuple)), default=0)
+
+
+TREES = {
+    "leaf": ("t", 0),
+    "not_root": ("!", ("|", ("t", 0), ("&", ("t", 1), ("t", 2)))),
+    "wide_or": ("|",) + tuple(("t", i) for i in range(5)),
+    "deep": deep_tree(MAX_DEPTH, 5),
+    "zeros_leaf": ("&", ("|", ("t", 3), ("t", 4)), ("!", ("t", 1))),
+}
+
+
+def tree_inputs(seed, S, T=5, K=3):
+    """T leaves of K dense rows and S sparse slots over the W-word space;
+    leaf 4 is the all-zeros row (an unknown gram), some slots padding."""
+    rng = np.random.default_rng(seed)
+    bm = rng.integers(0, 2 ** 32, size=(V + 2, W), dtype=np.uint32)
+    bm[:V] |= rng.integers(0, 2 ** 32, size=(V, W), dtype=np.uint32)
+    bm[ONES], bm[ZEROS] = 0xFFFFFFFF, 0
+    post, offs_all, lens_all, _ = csr(seed, W, n_slices=max(T * S, 1),
+                                      max_len=5000)
+    rows = rng.integers(0, V, size=(T, K)).astype(np.int32)
+    rows[:, K - 1] = ONES
+    rows[4] = ZEROS
+    offs = offs_all[:T * S].reshape(T, S).copy()
+    lens = lens_all[:T * S].reshape(T, S).copy()
+    if S:
+        lens[1, -1] = 0   # padding slots: the AND identity
+        lens[3, 0] = 0
+    deleted = np.zeros(W, dtype=np.uint32)
+    deleted[rng.integers(0, W, 60)] = rng.integers(0, 2 ** 32, 60,
+                                                  dtype=np.uint32)
+    universe = rng.integers(0, 2 ** 32, size=W, dtype=np.uint32) | deleted
+    return bm, post, rows, offs, lens, deleted, universe
+
+
+def run_program(sig, leaves, universe):
+    """The postfix program of ``ast_program`` run as the kernel runs it,
+    over host words."""
+    ops, need = T.ast_program(sig)
+    stack = []
+    for op in ops:
+        if op >= 0:
+            stack.append(leaves[op])
+        elif op == T.AST_NOT:
+            stack.append(universe & ~stack.pop())
+        else:
+            y, x = stack.pop(), stack.pop()
+            stack.append(x & y if op == T.AST_AND else x | y)
+        assert len(stack) <= need
+    assert len(stack) == 1
+    return stack[0]
+
+
+@pytest.mark.parametrize("S", [0, 2])
+@pytest.mark.parametrize("tree", list(TREES))
+def test_ast_words_entry_matches_jax(tree, S):
+    sig = TREES[tree]
+    bm, post, rows, offs, lens, deleted, universe = tree_inputs(31 + S, S)
+    Tn, K = rows.shape
+    bucket = int(max(lens.max(initial=1), 1))
+    # the JAX package pads S to at least one slot (a padding slot is the
+    # AND identity); the port takes S = 0 as it is
+    jo, jl = ((offs, lens) if S else (np.zeros((Tn, 1), np.int64),) * 2)
+    want = np.asarray(JD._ast_words_program(sig, K, max(S, 1), bucket, W)(
+        jnp.asarray(bm), jpost(post), jnp.asarray(deleted),
+        jnp.asarray(universe), jnp.asarray(rows),
+        jnp.asarray(jo.astype(np.int32)), jnp.asarray(jl.astype(np.int32))))
+    runtime.reset_launches()
+    got = u32(T.ast_words(sig, i32(bm), torch.from_numpy(post), i32(deleted),
+                          i32(universe), rows, offs, lens, bucket=bucket,
+                          n_words=W))
+    assert np.array_equal(got, want)
+    assert runtime.launches["ast_words"] == 0  # the CPU runs the plain one
+    assert not (got & deleted).any()
+    assert got.any() or tree == "zeros_leaf"
+    # the postfix program the kernel runs gives the same words
+    leaves = u32(T._term_bitmaps(i32(bm), torch.from_numpy(rows),
+                                 torch.from_numpy(post),
+                                 torch.from_numpy(offs),
+                                 torch.from_numpy(lens), i32(deleted),
+                                 bucket=bucket, n_words=W))
+    assert np.array_equal(run_program(sig, leaves, universe) & ~deleted,
+                          want)
+
+
+def test_ast_program_stack_stays_within_the_depth():
+    for sig in TREES.values():
+        ops, need = T.ast_program(sig)
+        assert need <= tree_depth(sig) + 1
+        assert sum(op >= 0 for op in ops) == str(sig).count("'t'")
+    assert T.ast_program(("t", 7)) == ([7], 1)
+    assert T.ast_program(("!", ("&", ("t", 0), ("t", 1), ("t", 2)))) == (
+        [0, 1, T.AST_AND, 2, T.AST_AND, T.AST_NOT], 2)
+    assert tree_depth(TREES["deep"]) == MAX_DEPTH
+
+
+@pytest.mark.parametrize("with_real", [False, True])
+def test_ast_words_entry_keeps_real(with_real):
+    """A leaf's ``real`` slots: an empty slice of a real term gives zeros,
+    as the JAX package's ``term_bitmap`` has it."""
+    K, S = 4, 3
+    bm, rows, post, offs, lens, deleted, real = term_inputs(17, K, S,
+                                                            with_real)
+    want = np.asarray(J.term_bitmap(
+        jnp.asarray(bm), jnp.asarray(rows), jpost(post),
+        jnp.asarray(offs.astype(np.int32)),
+        jnp.asarray(lens.astype(np.int32)), jnp.asarray(deleted),
+        K=K, S=S, bucket=4096, n_words=W,
+        real=None if real is None else jnp.asarray(real)))
+    got = u32(T.ast_words(("t", 0), i32(bm), torch.from_numpy(post),
+                          i32(deleted), i32(np.zeros(W, np.uint32)),
+                          rows[None], offs[None], lens[None], bucket=4096,
+                          n_words=W, real=None if real is None
+                          else real[None]))
+    assert np.array_equal(got, want)
+    assert got.any() != with_real

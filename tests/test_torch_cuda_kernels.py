@@ -14,7 +14,7 @@ from mygramdb_tpu_torch.ops import (bitmap_ops, posting_ops, runtime,
                                     verify_ops)
 from mygramdb_tpu_torch.ops.errors import KernelError
 
-from torch_parity import require_cuda
+from torch_parity import require_cuda, sparse_probe_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -684,10 +684,236 @@ def test_boolean_and_fuzzy_paths_on_cuda_match_cpu():
             for m in (1, 2, len(tids)):
                 assert np.array_equal(gpu.search_by_threshold(tids, m),
                                       cpu.search_by_threshold(tids, m))
-    assert runtime.launch_forms["reduce_rows.and"] == 200
+    # every tree is one launch of the boolean program; K2's row reduce
+    # serves the unions
+    assert runtime.launches["ast_words"] == 200
+    assert runtime.launch_forms["reduce_rows.and"] == 0
     assert runtime.launch_forms["reduce_rows.or"] > 0
     assert runtime.routes["threshold_merge"] > 0
     assert runtime.routes["threshold_bitmap"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K3's probe entry: the sparse program in one launch (csrc/slice_gather.cu)
+# ---------------------------------------------------------------------------
+
+def probe_case(C, B, Ks, Kd, W=34816, seed=0):
+    d = sparse_probe_inputs(seed + C + B + Ks, B, C, Ks, Kd, W=W)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(
+        np.int32) if a.dtype == np.uint32 else a).cuda()
+    return d, (t(d["postings"]), t(d["bitmaps"]), t(d["deleted"]),
+               t(d["extra"]), t(d["args"]))
+
+
+# (form, width) for a C: the batcher's pages, count only, n past C, the
+# fused program's compactions and the probeless candidate vector
+def probe_forms(C):
+    return [("topn", 128, False), ("topn", 1024, True), ("topn", 0, True),
+            ("topn", 2 * C + 3, True), ("compact", min(4096, C), False),
+            ("compact", C, False), ("masked", C, False)]
+
+
+@pytest.mark.parametrize("Ks,Kd", [(8, 8), (32, 32)])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("C", [512, 1000, 2048, 8192, 32768, 65536])
+def test_sparse_probe_matches_plain(C, B, Ks, Kd):
+    require_cuda()
+    d, (post, bm, dl, extra, args) = probe_case(C, B, Ks, Kd)
+    W = bm.shape[1]
+    checks = 0
+    for form, width, desc in probe_forms(C):
+        for sparse, dense, ext in ((True, True, extra), (False, False, None),
+                                   (True, False, None), (True, True, None)):
+            kw = dict(Ks=Ks, Kd=Kd, C=C, Cmax=d["Cmax"], n_words=W,
+                      form=form, width=width, descending=desc,
+                      sparse_probes=sparse, dense_probes=dense)
+            before = dict(runtime.launches), dict(runtime.launch_forms)
+            got = posting_ops.sparse_probe(post, bm, dl, ext, args, **kw)
+            # one launch; the kernel gathers the slices itself
+            assert runtime.launches == {
+                **before[0], "sparse_probe": before[0]["sparse_probe"] + 1}
+            assert runtime.launch_forms[f"sparse_probe.{form}"] == \
+                before[1][f"sparse_probe.{form}"] + 1
+            assert runtime.launch_forms["sparse_probe.probe_free"] == \
+                before[1]["sparse_probe.probe_free"] + (not (sparse or dense))
+            want = posting_ops._sparse_probe_plain(post, bm, dl, ext, args,
+                                                   **kw)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and torch.equal(got, want), \
+                (form, width, desc, sparse, dense, ext is not None)
+            checks += 1
+    counts = want[:B] if want.dim() == 1 else want[:, 0]
+    assert checks == 28 and int(counts.sum()) > 0
+
+
+def test_sparse_probe_truncates_probe_slices_at_cmax():
+    require_cuda()
+    d, (post, bm, dl, extra, args) = probe_case(2048, 16, 8, 8, W=4096)
+    for Cmax in (64, 1000, d["Cmax"]):
+        kw = dict(Ks=8, Kd=8, C=2048, Cmax=Cmax, n_words=4096, form="topn",
+                  width=1024, descending=True)
+        got = posting_ops.sparse_probe(post, bm, dl, extra, args, **kw)
+        want = posting_ops._sparse_probe_plain(post, bm, dl, extra, args,
+                                               **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), Cmax
+
+
+def test_sparse_probe_more_queries_than_grid_rows():
+    require_cuda()
+    d, (post, bm, dl, extra, args) = probe_case(512, 70, 8, 8, W=1024)
+    args = args.repeat(1000, 1)[:70_000].contiguous()
+    kw = dict(Ks=8, Kd=8, C=512, Cmax=d["Cmax"], n_words=1024, form="topn",
+              width=128, descending=True)
+    got = posting_ops.sparse_probe(post, bm, dl, extra, args, **kw)
+    want = posting_ops._sparse_probe_plain(post, bm, dl, extra, args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_sparse_probe_refuses_bad_inputs():
+    require_cuda()
+    d, (post, bm, dl, extra, args) = probe_case(512, 4, 8, 8, W=1024)
+    kw = dict(Ks=8, Kd=8, C=512, Cmax=d["Cmax"], n_words=1024, form="topn",
+              width=128)
+    with pytest.raises(KernelError, match="shape"):
+        posting_ops.sparse_probe(post, bm, dl, extra, args[:, :-1]
+                                 .contiguous(), **kw)
+    with pytest.raises(KernelError, match="int64"):
+        posting_ops.sparse_probe(post, bm, dl, extra, args.int(), **kw)
+    with pytest.raises(KernelError, match="contiguous"):
+        posting_ops.sparse_probe(post, bm[:, ::2], dl[::2], extra[:, ::2],
+                                 args, **kw)
+    with pytest.raises(KernelError):
+        posting_ops.sparse_probe(post, bm, dl.cpu(), extra, args, **kw)
+    before = runtime.launches["sparse_probe"]
+    out = posting_ops.sparse_probe(post, bm, dl, extra, args[:0], **kw)
+    assert out.shape == (0, 129) and runtime.launches["sparse_probe"] == \
+        before
+
+
+# ---------------------------------------------------------------------------
+# K2's tree entry: the boolean program in one launch (csrc/dense_and.cu)
+# ---------------------------------------------------------------------------
+
+def tree_case(W, T, K, S, seed, pool=6000, keep=0.6):
+    """Host inputs of the boolean program: random rows (row V all-ones,
+    V + 1 all-zeros, the others 15/16 set), a CSR of sorted slices that
+    each keep about ``keep`` of one pool of ``pool`` documents (so their
+    ANDs hold documents), rows (T, K), offs and lens (T, S) with padding
+    slots, tombstones and a universe."""
+    rng = np.random.default_rng(seed)
+    V = 24
+    n_docs = W * 32
+    bm = rng.integers(0, 2 ** 32, size=(V + 2, W), dtype=np.uint32)
+    for _ in range(3):
+        bm[:V] |= rng.integers(0, 2 ** 32, size=(V, W), dtype=np.uint32)
+    bm[V], bm[V + 1] = 0xFFFFFFFF, 0
+    docs = rng.choice(n_docs, min(pool, n_docs), replace=False)
+    lists = [np.sort(docs[rng.random(docs.size) < keep])
+             for _ in range(T * S + 1)]
+    lists[0] = np.union1d(lists[0], [0, 31, n_docs - 1])
+    lens_all = np.asarray([x.size for x in lists], dtype=np.int64)
+    offs_all = np.zeros(len(lists), dtype=np.int64)
+    np.cumsum(lens_all[:-1], out=offs_all[1:])
+    post = np.concatenate(lists).astype(np.int32)
+    rows = rng.integers(0, V, size=(T, K)).astype(np.int32)
+    rows[:, K - 1] = V
+    if T > 4:
+        rows[4] = V + 1                   # an unknown gram's leaf
+    offs = offs_all[:T * S].reshape(T, S).copy()
+    lens = lens_all[:T * S].reshape(T, S).copy()
+    if S:
+        lens[0, -1] = 0                   # padding
+        if T > 2:
+            offs[2, 0] = post.size        # a dense term's entry: zeros
+    deleted = np.zeros(W, dtype=np.uint32)
+    deleted[rng.integers(0, W, W // 40)] = rng.integers(
+        0, 2 ** 32, W // 40, dtype=np.uint32)
+    universe = rng.integers(0, 2 ** 32, size=W, dtype=np.uint32) | deleted
+    real = rng.random((T, S)) < 0.5
+    t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                   else a).cuda()
+    return (t(bm), t(post), t(deleted), t(universe)), rows, offs, lens, real
+
+
+def chain(depth, T):
+    node = ("t", 0)
+    for i in range(depth - 1):
+        tag = "&|!"[i % 3]
+        node = ("!", node) if tag == "!" else (tag, ("t", (i + 1) % T), node)
+    return node
+
+
+TREE_CASES = {
+    "leaf": (("t", 0), 1, 3, 2),
+    "not_root": (("!", ("|", ("t", 0), ("&", ("t", 1), ("t", 2)))), 3, 4, 2),
+    "zeros_leaf": (("&", ("|", ("t", 3), ("t", 4)), ("!", ("t", 1))), 5, 3,
+                   2),
+    "no_sparse": (("|", ("t", 0), ("!", ("t", 1))), 2, 8, 0),
+    "max_depth": (chain(32, 6), 6, 4, 3),
+    # a stack past the shared memory of 128 vectors a block: the span
+    # shrinks (no parser tree is this deep)
+    "deep_stack": (chain(400, 6), 6, 2, 1),
+    # more slices than the block caches windows for: the rest inline
+    "many_slices": (("|",) + tuple(("t", i) for i in range(40)), 40, 2, 30),
+    # an n-ary AND, a leaf twice (leaf 2 holds a dense term's entry)
+    "wide_and": (("&", ("t", 0), ("t", 1), ("t", 3), ("t", 0)), 4, 1, 2),
+}
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("W", [1024, 34816])
+@pytest.mark.parametrize("case", list(TREE_CASES))
+def test_ast_words_matches_plain(case, W, real):
+    require_cuda()
+    sig, T, K, S = TREE_CASES[case]
+    (bm, post, dl, uni), rows, offs, lens, rl = tree_case(
+        W, T, K, S, seed=len(case) + W, keep=0.97 if S > 10 else 0.6)
+    bucket = int(max(lens.max(initial=1), 1))
+    kw = dict(bucket=bucket, n_words=W, real=rl if real else None)
+    before = dict(runtime.launches)
+    got = bitmap_ops.ast_words(sig, bm, post, dl, uni, rows, offs, lens, **kw)
+    assert runtime.launches == {**before,
+                                "ast_words": before["ast_words"] + 1}
+    want = bitmap_ops._ast_words_plain(sig, bm, post, dl, uni, rows, offs,
+                                       lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), case
+    # (a real empty slot may zero leaf 0 and with it an AND)
+    assert case == "zeros_leaf" or real or bool(got.any())
+
+
+def test_ast_words_bucket_truncates_slices():
+    require_cuda()
+    (bm, post, dl, uni), rows, offs, lens, _ = tree_case(2048, 3, 2, 3, 9)
+    sig = ("|", ("t", 0), ("&", ("t", 1), ("t", 2)))
+    for bucket in (1, 100, int(lens.max())):
+        kw = dict(bucket=bucket, n_words=2048)
+        got = bitmap_ops.ast_words(sig, bm, post, dl, uni, rows, offs, lens,
+                                   **kw)
+        want = bitmap_ops._ast_words_plain(sig, bm, post, dl, uni, rows,
+                                           offs, lens, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), bucket
+
+
+def test_ast_words_refuses_bad_inputs():
+    require_cuda()
+    (bm, post, dl, uni), rows, offs, lens, _ = tree_case(1024, 2, 2, 1, 3)
+    kw = dict(bucket=4096, n_words=1024)
+    with pytest.raises(KernelError, match="multiple of 4"):
+        bitmap_ops.ast_words(("t", 0), bm[:, :1022].contiguous(), post,
+                             dl[:1022], uni[:1022], rows, offs, lens, **kw)
+    with pytest.raises(KernelError, match="contiguous"):
+        bitmap_ops.ast_words(("t", 0), bm[:, ::2], post, dl, uni, rows,
+                             offs, lens, **kw)
+    with pytest.raises(KernelError, match="leaf"):
+        bitmap_ops.ast_words(("t", 5), bm, post, dl, uni, rows, offs, lens,
+                             **kw)
+    with pytest.raises(KernelError):
+        bitmap_ops.ast_words(("t", 0), bm, post, dl.cpu(), uni, rows, offs,
+                             lens, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -771,7 +997,8 @@ def second_card():
 
 
 @pytest.mark.parametrize("kernel", ["dense_and", "dense_and_topn",
-                                    "reduce_rows", "slice_gather",
+                                    "reduce_rows", "ast_words",
+                                    "slice_gather", "sparse_probe",
                                     "tf_rows", "row_gather"])
 def test_every_kernel_on_a_second_card(kernel):
     dev = second_card()
@@ -788,6 +1015,24 @@ def test_every_kernel_on_a_second_card(kernel):
         else:
             got = (bitmap_ops.reduce_rows(bm, rows, "and"),)
             want = (bitmap_ops._reduce_rows_plain(bm, rows, "and"),)
+    elif kernel == "ast_words":
+        (bm, post, dl, uni), rows, offs, lens, _ = tree_case(313344, 3, 4, 2,
+                                                             5)
+        bm, post, dl, uni = (x.to(dev) for x in (bm, post, dl, uni))
+        sig = ("&", ("|", ("t", 0), ("t", 1)), ("!", ("t", 2)))
+        kw = dict(bucket=4096, n_words=313344)
+        got = (bitmap_ops.ast_words(sig, bm, post, dl, uni, rows, offs, lens,
+                                    **kw),)
+        want = (bitmap_ops._ast_words_plain(sig, bm, post, dl, uni, rows,
+                                            offs, lens, **kw),)
+    elif kernel == "sparse_probe":
+        d, inputs = probe_case(65536, 8, 8, 8)
+        post, bm, dl, extra, args = (x.to(dev) for x in inputs)
+        kw = dict(Ks=8, Kd=8, C=65536, Cmax=d["Cmax"], n_words=34816,
+                  form="topn", width=1024, descending=True)
+        got = (posting_ops.sparse_probe(post, bm, dl, extra, args, **kw),)
+        want = (posting_ops._sparse_probe_plain(post, bm, dl, extra, args,
+                                                **kw),)
     elif kernel == "slice_gather":
         post = torch.arange(100_000, dtype=torch.int32, device=dev)
         offs = torch.arange(0, 99_000, 990, dtype=torch.int64, device=dev)

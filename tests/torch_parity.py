@@ -77,3 +77,85 @@ def random_queries(built, tdev, n, seed):
                 if shape in (1, 4) else [])
         out.append(([int(t) for t in tids], [int(t) for t in nots]))
     return out
+
+
+def sparse_probe_inputs(seed: int, B: int, C: int, Ks: int, Kd: int,
+                        W: int = 2048, V: int = 24):
+    """Random inputs of the sparse program, numpy, made to hit its edges:
+    a CSR of sorted posting lists (drivers up to C entries, one longer
+    than C; probe lists that share most of their driver's ids), a driver
+    at offset P (a dense term's entry) and one running past P, NOT probes,
+    zero-length inverted padding slots and one empty non-inverted slot,
+    dense rows with NOT flags padded with the all-ones row V, two filter
+    rows and tombstones among the candidates.
+
+    -> dict: postings (P,) int32, bitmaps (V + 2, W) uint32, deleted (W,)
+    uint32, extra (2, W) uint32, args (B, 2 + 3 Ks + 2 Kd) int64 (the
+    ``pack_sparse_args`` layout), the seven columns (d_off, d_len, sp_off,
+    sp_len, sp_inv, dn_rows, dn_inv), and Cmax."""
+    rng = np.random.default_rng(seed)
+    n_docs = W * 32
+    lists = []
+    q_driver, q_probes = [], []
+    for b in range(B):
+        dl = C if b % 5 == 1 else (C + 7 if b % 5 == 2 else
+                                   int(rng.integers(1, C + 1)))
+        dl = min(dl, n_docs // 2)
+        drv = np.sort(rng.choice(n_docs, size=dl, replace=False))
+        q_driver.append(len(lists))
+        lists.append(drv)
+        probes = []
+        # query 0 fills every slot (32 slices: one whole group)
+        for k in range(Ks if b == 0 else int(rng.integers(0, min(Ks, 6) + 1))):
+            inv = k % 3 == 2  # a NOT term shares few of the driver's ids
+            keep = drv[rng.random(dl) < (0.1 if inv else 0.9)]
+            other = rng.choice(n_docs, replace=False, size=int(
+                rng.integers(0, min(3 * C, 8192, n_docs // 2))))
+            probes.append((len(lists), inv))
+            lists.append(np.union1d(keep, other))
+        q_probes.append(probes)
+    lens = np.asarray([x.size for x in lists], dtype=np.int64)
+    offs = np.zeros(len(lists), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    postings = np.concatenate(lists).astype(np.int32)
+    P = postings.size
+    d_off = offs[q_driver].copy()
+    d_len = lens[q_driver].copy()
+    if B > 3:
+        d_off[3], d_len[3] = P, 40          # a dense term's entry
+    if B > 4:
+        d_off[4], d_len[4] = P - 5, 60      # a driver running past P
+    sp_off = np.zeros((B, Ks), dtype=np.int64)
+    sp_len = np.zeros((B, Ks), dtype=np.int64)
+    sp_inv = np.ones((B, Ks), dtype=bool)   # zero-length inverted padding
+    for b, probes in enumerate(q_probes):
+        for k, (li, inv) in enumerate(probes):
+            sp_off[b, k], sp_len[b, k], sp_inv[b, k] = offs[li], lens[li], inv
+    if B > 6:
+        sp_inv[6, -1] = False               # an empty term: matches nothing
+    dn_rows = np.full((B, Kd), V, dtype=np.int32)
+    dn_inv = np.zeros((B, Kd), dtype=bool)
+    for b in range(B):
+        for k in range(int(rng.integers(0, min(Kd, 4) + 1))):
+            dn_rows[b, k] = rng.integers(0, V)
+            dn_inv[b, k] = k == 2
+    bm = np.where(rng.random((V + 2, W * 32)) < 0.85, 1, 0).astype(np.uint8)
+    bm = np.packbits(bm, axis=1, bitorder="little").view(np.uint32)
+    bm[V] = 0xFFFFFFFF
+    bm[V + 1] = 0
+    deleted = np.zeros(W, dtype=np.uint32)
+    gone = rng.choice(postings, size=max(P // 40, 1))
+    np.bitwise_or.at(deleted, gone >> 5,
+                     np.left_shift(np.uint32(1), (gone & 31).astype(np.uint32)))
+    extra = np.where(rng.random((2, W * 32)) < 0.9, 1, 0).astype(np.uint8)
+    extra = np.packbits(extra, axis=1, bitorder="little").view(np.uint32)
+    cols = (d_off, d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv)
+    Cmax = 1
+    while Cmax < max(int(sp_len.max(initial=1)), 1):
+        Cmax <<= 1
+    args = np.concatenate([d_off[:, None], d_len[:, None], sp_off, sp_len,
+                           sp_inv.astype(np.int64), dn_rows.astype(np.int64),
+                           dn_inv.astype(np.int64)], axis=1)
+    return {"postings": postings, "bitmaps": bm, "deleted": deleted,
+            "extra": extra, "args": args, "cols": cols, "Cmax": Cmax,
+            "ones_row": V}
