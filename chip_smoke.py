@@ -108,7 +108,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # own within a few rows
 P1_ROWS, P1_ROW_CELLS, P1_GATHERED = 1_130_496, 1024, 131_072
 FUZZY_CAP = 131_072    # the all-sparse threshold program returns no more
+# FUZZY queries of the verified serve, EN words and rare-kanji terms (a
+# host edit distance each: seconds a query under load)
+FUZZY_EN, FUZZY_KANJI = 20, 15
 FLAT_DOCS = 100_000    # documents of the flat-layout verified serve
+SHARDED_QUERIES = 1500  # SEARCH/COUNT queries of the sharded serve
 PLAIN_DOCS = 300_000   # documents of the unverified serve
 # maxT of the verified serve's corpus (its p99 document passes 512 code
 # points): the padded matrix's rows are TEXT_MAXT + NEEDLE_CAP cells
@@ -1354,21 +1358,24 @@ def synonym_groups(gen, seed: int):
 
 
 def write_inputs(docs: int, seed: int, verified: bool,
-                 synonyms: bool = False):
-    """Seed JSONL of the synthetic corpus + a JSON config (with a synonym
-    file when asked); -> (generator, paths, status column, synonym
-    groups)."""
+                 synonyms: bool = False, mesh_shards: int = 1):
+    """Seed JSONL of the synthetic corpus (written once a run for each
+    docs and seed: the sharded serve reads the verified serve's) + a JSON
+    config (with a synonym file when asked, ``device.mesh_shards`` when
+    above 1); -> (generator, paths, status column, synonym groups)."""
     import numpy as np
     from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
-    work = os.path.join(WORK, f"{docs}_{int(verified)}")
+    work = os.path.join(WORK, f"{docs}_{int(verified)}_{mesh_shards}")
     os.makedirs(work, exist_ok=True)
     gen = CorpusGenerator(docs, ja_ratio=0.45, seed=seed)
-    seed_path = os.path.join(work, "seed.jsonl")
-    with open(seed_path, "w", encoding="utf-8") as f:
-        for batch in gen.batches(50_000):
-            f.write("".join(
-                json.dumps({"id": i, "content": t, "status": i % 3},
-                           ensure_ascii=False) + "\n" for i, t in batch))
+    seed_path = os.path.join(WORK, f"seed_{docs}_{seed}.jsonl")
+    if not os.path.exists(seed_path):
+        with open(seed_path + ".tmp", "w", encoding="utf-8") as f:
+            for batch in gen.batches(50_000):
+                f.write("".join(
+                    json.dumps({"id": i, "content": t, "status": i % 3},
+                               ensure_ascii=False) + "\n" for i, t in batch))
+        os.replace(seed_path + ".tmp", seed_path)
     cfg = {
         "tables": [{"name": "articles",
                     "text_source": {"column": "content"},
@@ -1382,6 +1389,8 @@ def write_inputs(docs: int, seed: int, verified: bool,
     }
     if verified:
         cfg["memory"] = {"verify_text": "all"}
+    if mesh_shards > 1:
+        cfg["device"] = {"mesh_shards": mesh_shards}
     groups = synonym_groups(gen, seed) if synonyms else []
     if groups:
         syn_path = os.path.join(work, "synonyms.tsv")
@@ -1816,8 +1825,8 @@ def make_kind_queries(gen, ctx, ref, texts, groups, seed: int,
     dense, sparse and CJK terms. Synonym: every term of the synonym file,
     alone, AND another term, and counted. Fuzzy: long EN words as they
     are (FUZZY 1), with a letter dropped (FUZZY 1) and with two letters
-    swapped (FUZZY 2), at most 45 of them, and 3-character terms of rare
-    kanji (every base gram sparse). A fuzzy term with more than FUZZY_CAP
+    swapped (FUZZY 2), at most FUZZY_EN of them, and FUZZY_KANJI
+    3-character terms of rare kanji (every base gram sparse). A fuzzy term with more than FUZZY_CAP
     candidates is dropped. -> (queries, fuzzy terms dropped for the
     cap). Without fuzzy_terms, no fuzzy query."""
     import numpy as np
@@ -1899,16 +1908,17 @@ def make_kind_queries(gen, ctx, ref, texts, groups, seed: int,
                 if None not in tids and all(dense_row[i] < 0 for i in tids):
                     kanji.append(x[p:p + 3])
                 break
-        if len(kanji) == 30:
+        if len(kanji) == FUZZY_KANJI:
             break
-    check(len(kanji) >= 10, f"only {len(kanji)} rare-kanji fuzzy terms")
+    check(len(kanji) >= FUZZY_KANJI // 2,
+          f"only {len(kanji)} rare-kanji fuzzy terms")
     fz += [fuzzy(k, 1 + i % 2) for i, k in enumerate(kanji)]
     dropped = kept_en = 0
     for q in fz:
+        if q["terms"][0].isascii() and kept_en == FUZZY_EN:
+            continue  # enough EN fuzzy queries under the cap
         if ref.fuzzy_candidates(q["terms"][0], q["dist"]).size > FUZZY_CAP:
             dropped += 1
-        elif q["terms"][0].isascii() and kept_en == 45:
-            continue  # enough EN fuzzy queries under the cap
         else:
             kept_en += q["terms"][0].isascii()
             out.append(q)
@@ -1981,12 +1991,310 @@ def search_or_check(ctx, ref, words) -> dict:
             len(sizes), "ids": sum(sizes)}
 
 
+# ---------------------------------------------------------------------------
+# The mesh: each sharded program against the single-device program
+# ---------------------------------------------------------------------------
+
+MESH_DOCS = 300_000   # documents of the mesh phase's synthetic index
+
+
+def shard_count() -> int:
+    """2 shards on a host of one card, else one a card, up to 8."""
+    import torch
+    n = torch.cuda.device_count()
+    return 2 if n == 1 else min(n, 8)
+
+
+class SyntheticBuilt:
+    """A ``BuiltIndex`` stand-in: V terms with Zipf-like document
+    frequencies (0.3 n / rank^0.8 + 16) over n documents, random sorted
+    ids per term."""
+
+    def __init__(self, rng, n_docs: int, V: int):
+        import numpy as np
+        df = (0.3 * n_docs / np.arange(1, V + 1) ** 0.8).astype(np.int64) + 16
+        tid = np.repeat(np.arange(V, dtype=np.int64), df)
+        key = np.unique(tid * (n_docs + 1)
+                        + rng.integers(1, n_docs + 1, size=tid.size))
+        self.postings = (key % (n_docs + 1)).astype(np.int32)
+        self.lengths = np.bincount(key // (n_docs + 1),
+                                   minlength=V).astype(np.int32)
+        self.offsets = np.zeros(V, dtype=np.int64)
+        np.cumsum(self.lengths[:-1], out=self.offsets[1:])
+        self.n_terms, self.n_docs = V, n_docs
+        self.max_doc_id = int(self.postings.max())
+        self.positional = None
+
+    def postings_of(self, t: int):
+        o = int(self.offsets[t])
+        return self.postings[o:o + int(self.lengths[t])]
+
+
+def engine_check(devices) -> dict:
+    """``__graft_entry__.dryrun_multichip`` on the card: a
+    ``ShardedQueryEngine`` takes one delta-apply, then a batched query,
+    held against numpy over the same bitmaps."""
+    import numpy as np
+    from mygramdb_tpu_torch.parallel.mesh import ShardedQueryEngine, make_mesh
+    rng = np.random.default_rng(3)
+    W = 1024 * len(devices)
+    bm = np.zeros((16, W), dtype=np.uint32)
+    bm[:14] = (rng.integers(0, 2 ** 32, size=(14, W), dtype=np.uint32)
+               & rng.integers(0, 2 ** 32, size=(14, W), dtype=np.uint32))
+    bm[14] = 0xFFFFFFFF
+    dl = np.zeros(W, dtype=np.uint32)
+    eng = ShardedQueryEngine(make_mesh(devices=devices), bm, dl, topk=16)
+    tr = np.asarray([0, 0, 1, 2, 3], dtype=np.int32)
+    di = np.asarray([33, 34, 65, 97, W * 32 - 1], dtype=np.int32)
+    eng.apply_delta(tr, di)
+    np.bitwise_or.at(bm, (tr, di >> 5), np.left_shift(
+        np.uint32(1), (di & 31).astype(np.uint32)))
+    rows = np.full((8, 4), 14, dtype=np.int32)
+    rows[:, 0] = np.arange(8)
+    rows[:, 1] = (np.arange(8) + 3) % 14
+    counts, ids = eng.search(rows)
+    for b in range(8):
+        words = np.bitwise_and.reduce(bm[rows[b]], axis=0)
+        docs = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                            bitorder="little"))
+        check(int(counts[b]) == docs.size and
+              ids[b][ids[b] >= 0].tolist() == docs[::-1][:16].tolist(),
+              f"ShardedQueryEngine query {b} differs from numpy")
+    return {"queries": 8, "delta_pairs": int(tr.size), "words": W}
+
+
+def mesh_phase(docs: int = MESH_DOCS, device: str = "cuda") -> dict:
+    """The port's mesh on the card: the engine check, then each sharded
+    program against the port's single-device program over one synthetic
+    index of MESH_DOCS documents and its text, exactly (BM25 scores to
+    1e-5 relative): the dense program (``sharded_query_step``, K1 a
+    shard), the sparse program's top-n (``sharded_sparse_query``, K3), a
+    boolean tree (``sharded_ast_words``, K2) and the fused verify in count
+    and score mode (``sharded_fused_verify``: K3's masked form, K6 over
+    each shard's rows). Each pair is timed in the same call: device ms
+    (torch.profiler) and event ms of the sharded program (the merge and
+    its pull included) against the single-device one. device="cpu"
+    rehearses the checks on the CPU (no timings)."""
+    import numpy as np
+    from mygramdb_tpu_torch.index.device_index import DeviceIndex
+    from mygramdb_tpu_torch.ops import bitmap_ops, fused, runtime
+    from mygramdb_tpu_torch.ops.posting_ops import (pack_sparse_args,
+                                                    sparse_probe)
+    from mygramdb_tpu_torch.parallel import mesh as pmesh
+    from mygramdb_tpu_torch.storage.device_text import DeviceTextStore
+    t_phase = time.time()
+    S = shard_count() if device == "cuda" else 2
+    devices = pmesh.default_devices(S, device)
+    out = {"phase": "mesh", "shards": S, "docs": docs,
+           "engine": engine_check(devices)}
+    rng = np.random.default_rng(11)
+    built = SyntheticBuilt(rng, docs, 3000)
+    mesh = pmesh.make_mesh(devices=devices)
+    m = DeviceIndex(built, mesh=mesh)
+    one = DeviceIndex(built, device=device)
+    out["layout"] = mesh.layout()
+    vocab = ["".join(rng.choice(list("abcdefghijkl"), 3))
+             for _ in range(400)]
+    picks = rng.integers(0, 400, size=(docs, 40))
+    n_words = rng.integers(8, 40, size=docs)
+    texts = {d: " ".join(vocab[i] for i in picks[d - 1, :n_words[d - 1]])
+             for d in range(1, docs + 1)}
+    mst = DeviceTextStore(texts, m.n_docs_capacity,
+                          doc_sharding=m.text_doc_sharding)
+    sst = DeviceTextStore(texts, one.n_docs_capacity, device=device)
+    del texts
+    check(mst.doc_sharded and sst.codepoints.dim() == 2,
+          "the mesh phase's text store is not padded and doc-sharded")
+    dead = rng.choice(np.arange(1, docs + 1), docs // 100, replace=False)
+    for idx in (m, one):
+        idx.mark_deleted(dead.tolist())
+    dense = np.flatnonzero(one.dense_row >= 0)
+    sparse = np.flatnonzero(one.dense_row < 0)
+    drivers = sparse[(built.lengths[sparse] > 64)
+                     & (built.lengths[sparse] <= 2048)]
+    B, Ws, Ds = 64, m.words_local, m.shard_docs
+    checks, times = {}, {}
+    runtime.reset_launches()
+
+    def timed(name, fn_mesh, fn_one, shard_bound=None):
+        """shard_bound: the bound of one shard's launch at W / S words."""
+        if device != "cuda":
+            return
+        pm, po = device_profile(fn_mesh), device_profile(fn_one)
+        times[name] = {"shard_shape": f"W/S={Ws}", **(shard_bound or {}),
+                       "mesh_ms": cuda_ms(fn_mesh, 10),
+                       "single_ms": cuda_ms(fn_one, 10),
+                       "mesh_device_ms": pm["device_ms"],
+                       "single_device_ms": po["device_ms"],
+                       "mesh_kernels": pm["kernels"],
+                       "single_kernels": po["kernels"]}
+
+    # the dense program: K1 a shard, the merge (two of the commonest
+    # dense terms a query, so that most queries match)
+    common = dense[np.argsort(built.lengths[dense])[::-1][:8]]
+    rows = rng.choice(common, size=(B, 2)).astype(np.int32)
+    step = pmesh.sharded_query_step(mesh, n=128, shard_words=Ws)
+    got_c, got_i = step([m.bitmaps], rows, [m.deleted])
+    rows_t = runtime.to_device(rows, one._device)
+
+    def dense_one():
+        return bitmap_ops.dense_and_topn(one.bitmaps, rows_t, None, None,
+                                         one.deleted, 128, True)[0]
+    want = dense_one().cpu().numpy()
+    check(np.array_equal(got_c, want[:, 0]) and
+          np.array_equal(got_i, want[:, 1:]),
+          "sharded_query_step differs from the single-device K1")
+    checks["sharded_query_step"] = {"queries": B, "matches":
+                                    int(got_c.sum())}
+    distinct = len(np.unique(rows))
+    timed("sharded_query_step B=64 K=2 n=128",
+          lambda: step([m.bitmaps], rows, [m.deleted]), dense_one,
+          bound(4 * ((distinct + 1) * Ws + B * 2 + B * 129), B * 3 * Ws))
+
+    # the sparse program: K3's probe entry a shard, top-n; probes: a
+    # sparse NOT term, a sparse term in every fourth query (an empty
+    # inverted slot elsewhere), two common dense terms
+    drv = rng.choice(drivers, B)
+    sp = rng.choice(sparse, size=(B, 2))
+    dn = rng.choice(common, size=(B, 2)).astype(np.int64)
+    C = 2048
+    Cmax = int(one._cand_bucket(int(built.lengths[sp].max())))
+    pad = np.zeros((B, 2), dtype=bool)
+    pad[:, 1] = np.arange(B) % 4 != 0
+    inv = pad.copy()
+    inv[:, 0] = True
+    args = runtime.to_device(pack_sparse_args(
+        one.dev_offsets[drv], built.lengths[drv], one.dev_offsets[sp],
+        np.where(pad, 0, built.lengths[sp]), inv, dn,
+        np.zeros((B, 2), dtype=bool)), one._device)
+    sh = dict(C=C, Cmax=Cmax, limit_b=128, descending=True,
+              shard_docs=Ds, words_local=Ws)
+    sh_args = (m.offsets_sh[:, drv].T, m.lengths_sh[:, drv].T,
+               m.offsets_sh[:, sp].transpose(1, 2, 0),
+               np.where(pad[:, :, None], 0,
+                        m.lengths_sh[:, sp].transpose(1, 2, 0)),
+               np.repeat(inv[:, :, None], S, axis=2), dn,
+               np.zeros((B, 2), dtype=bool))
+
+    def sparse_mesh():
+        return pmesh.sharded_sparse_query(mesh, m.postings_sh, m.bitmaps,
+                                          m.deleted, *sh_args, **sh)
+
+    def sparse_one():
+        return sparse_probe(one.postings, one.bitmaps, one.deleted, None,
+                            args, Ks=2, Kd=2, C=C, Cmax=Cmax,
+                            n_words=one.n_words, form="topn", width=128,
+                            descending=True)
+    got = sparse_mesh()
+    check(np.array_equal(got, sparse_one().cpu().numpy()),
+          "sharded_sparse_query differs from the single-device K3")
+    checks["sharded_sparse_query"] = {"queries": B,
+                                      "matches": int(got[:, 0].sum())}
+    d0, l0, so, sl, si = sh_args[:5]   # shard 0's launch, for its bound
+    h0 = {"postings": m.postings_sh.parts[0].cpu().numpy(),
+          "args": pack_sparse_args(d0[:, 0], l0[:, 0], so[..., 0],
+                                   sl[..., 0], si[..., 0], *sh_args[5:])}
+    timed("sharded_sparse_query B=64 C=2048 Ks=Kd=2 n=128", sparse_mesh,
+          sparse_one, bound(probe_bytes(h0, 2, 2, C, 0, True, True,
+                                        B * 129), 0))
+
+    # a boolean tree: K2's tree program a shard, words concatenated
+    sig = ("&", ("|", ("t", 0), ("t", 1)), ("!", ("t", 2)))
+    leaves = [[int(rng.choice(dense)), int(rng.choice(drivers))],
+              [int(rng.choice(sparse))], [int(rng.choice(dense))]]
+    uni = [idx.universe_words(np.arange(1, docs + 1))
+           for idx in (m, one)]
+    got = m.ast_words(sig, leaves, uni[0])
+    check(np.array_equal(got, one.ast_words(sig, leaves, uni[1])),
+          "sharded_ast_words differs from the single-device K2 tree")
+    checks["sharded_ast_words"] = {"trees": 1, "docs": int(np.unpackbits(
+        got.view(np.uint8)).sum())}
+    tree0 = {"rows": np.asarray([m.dense_row[t] for leaf in leaves
+                                 for t in leaf if m.dense_row[t] >= 0]),
+             "lens": np.asarray([m.lengths_sh[0, t] for leaf in leaves
+                                 for t in leaf if m.dense_row[t] < 0])}
+    timed("sharded_ast_words 3 leaves", lambda: m.ast_words(
+        sig, leaves, uni[0]), lambda: one.ast_words(sig, leaves, uni[1]),
+        bound(tree_bytes(tree0, sig, Ws), 0))
+
+    # the fused verify: drivers of 65-2,048 docs (C = Kv = 2,048, the
+    # probe-free masked form), one vocabulary word a query as its needle
+    needles = np.zeros((B, 2, 32), dtype=np.uint32)
+    nlens = np.zeros((B, 2), dtype=np.int32)
+    for b in range(B):
+        w = vocab[int(rng.integers(400))]
+        needles[b, 0, :3] = [ord(x) for x in w]
+        nlens[b, 0] = 3
+    idf = np.zeros((B, 2), dtype=np.float32)
+    idf[:, 0] = rng.uniform(0.5, 3.0, B)
+    zeros = np.zeros((B, 1), dtype=np.int64)
+    for score in (False, True):
+        kw = dict(idf=idf, k1=1.2, b=0.75, avgdl=80.0, score_mode=score)
+
+        def fused_mesh():
+            return pmesh.sharded_fused_verify(
+                mesh, m.postings_sh, m.bitmaps, m.deleted, mst,
+                m.offsets_sh[:, drv].T, m.lengths_sh[:, drv].T,
+                np.zeros((B, 1, S), dtype=np.int64),
+                np.zeros((B, 1, S), dtype=np.int64),
+                np.ones((B, 1, S), dtype=bool), needles, nlens, None,
+                C=C, Cmax=C, Kv=C, n=128, maxT=mst.maxT, descending=True,
+                shard_docs=Ds, words_local=Ws, ones_row=m.ones_row, **kw)
+
+        def fused_one():
+            return fused.sparse_search_verify_topn_batch(
+                one.postings, one.bitmaps, one.deleted,
+                one.dev_offsets[drv], built.lengths[drv], zeros, zeros,
+                np.ones((B, 1), dtype=bool), zeros + one.ones_row,
+                np.zeros((B, 1), dtype=bool), sst, C, C, 128, needles,
+                nlens, one.n_words, True, Kv=C, maxT=sst.maxT,
+                use_dense_probes=False, **kw)
+        pre, clipped, count, ids, sc = pmesh.split_fused(fused_mesh(), 128,
+                                                         score)
+        want = fused_one()
+        check(not clipped.any() and np.array_equal(pre, want[0])
+              and np.array_equal(count, want[1])
+              and np.array_equal(ids, want[2]),
+              f"sharded_fused_verify (score={score}) differs from the "
+              "single-device fused program")
+        err = 0.0
+        if score:
+            finite = np.isfinite(want[3])
+            check(np.array_equal(finite, np.isfinite(sc)),
+                  "sharded BM25 pages differ in length")
+            err = float(np.max(np.abs(sc[finite] - want[3][finite])
+                               / np.maximum(np.abs(want[3][finite]), 1e-9)))
+            check(err <= 1e-5, f"sharded BM25 scores off by {err}")
+        mode = "score" if score else "count"
+        checks[f"sharded_fused_verify {mode}"] = {
+            "queries": B, "verified": int(count.sum()),
+            "candidates": int(pre.sum()), "max_rel_err": err}
+        timed(f"sharded_fused_verify {mode} B=64 C=Kv=2048 n=128",
+              fused_mesh, fused_one)
+    out.update({"checks": checks, "timings": times,
+                "launches_by_shard": {s: dict(v) for s, v in
+                                      runtime.launches_by_shard.items()},
+                "launches_by_device": {d: dict(v) for d, v in
+                                       runtime.launches_by_device.items()},
+                "shard_index_bytes": m.shard_memory(),
+                "shard_text_bytes": mst.shard_memory(),
+                "seconds": time.time() - t_phase})
+    for s in range(S if device == "cuda" else 0):
+        for k in ("dense_and", "sparse_probe", "ast_words",
+                  "tf_rows_padded"):
+            check(out["launches_by_shard"].get(s, {}).get(k, 0) > 0,
+                  f"shard {s} launched no {k} in the mesh phase")
+    emit(out)
+    return out
+
+
 def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                 conns: int = 64, verified: bool = False,
                 layout: str = "auto", profile_path: str = "",
                 kernels=(), routes_needed=(), kinds: bool = False,
                 forms_needed=(), measure_only: bool = False,
-                profile_classes=None):
+                profile_classes=None, mesh_shards: int = 1,
+                fuzzy: bool = True, shard_launches=()):
     """Load docs documents through ``Application``, serve n_queries over
     TCP from conns connections (with kinds, then the boolean, synonym and
     fuzzy queries and the ``search_or`` check), remove rows and re-ask;
@@ -1995,7 +2303,10 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
     measure_only (the paired profile runs, where the tree served may be an
     older one): no fuzzy queries, no removals, no launch or route
     requirements; answers are still checked. profile_classes: a predicate
-    on the class names the profile times alone. -> (launches, summary)."""
+    on the class names the profile times alone. mesh_shards > 1 serves a
+    doc-sharded index (``device.mesh_shards``); shard_launches are the
+    kernels and launch forms every shard must have launched. fuzzy=False
+    leaves out the FUZZY queries. -> (launches, summary)."""
     import numpy as np
     from mygramdb_tpu_torch import native
     from mygramdb_tpu_torch.app.application import Application
@@ -2006,7 +2317,7 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
     t_phase = time.time()
     t0 = time.time()
     gen, seed_path, cfg_path, status, groups = write_inputs(
-        docs, seed, verified, synonyms=kinds)
+        docs, seed, verified, synonyms=kinds, mesh_shards=mesh_shards)
     t_corpus = time.time() - t0
     config = load_config(cfg_path)
     app = Application(config, seed_path=seed_path)
@@ -2022,14 +2333,22 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
     dev = ctx.index.device
     check(dev._device.type == runtime.device().type,
           f"index on {dev._device}")
+    shards = 1 if dev.mesh is None else dev.mesh.shape["docs"]
+    check(shards == mesh_shards, f"{shards} shards, asked for {mesh_shards}")
     dev.warmup()  # must not raise
+    csr = dev.postings if dev.mesh is None else dev.postings_sh
     load = {"phase": name, "step": "load", "docs": ctx.doc_count,
             "corpus_s": t_corpus, "initialize_s": t_init,
             "n_words": dev.n_words, "dense_terms": dev.n_dense,
             "terms": int(dev.lengths.size),
-            "device_postings": int(dev.postings.numel()),
+            "device_postings": int(csr.numel()),
             "device_bytes": dev.memory_usage(),
             "native_host_library": native._load() is not None}
+    if dev.mesh is not None:
+        load.update({"mesh": dev.mesh.layout(),
+                     "shard_index_bytes": dev.shard_memory(),
+                     "shard_postings": [int(p.numel())
+                                        for p in dev.postings_sh.parts]})
     texts = None
     if verified:
         st = ctx.fresh_device_text()
@@ -2043,6 +2362,9 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                      "text_shape": list(st.codepoints.shape),
                      "text_bytes": st.memory_usage(),
                      "text_overflow": len(st._overflow)})
+        if dev.mesh is not None:
+            check(st.doc_sharded, "the text store is not doc-sharded")
+            load["shard_text_bytes"] = st.shard_memory()
         queries = make_verified_queries(
             gen, ctx, texts, n_queries, seed,
             skip={t for g in groups for t in g})
@@ -2057,7 +2379,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
               "the synonym file was not loaded")
         t0 = time.time()
         kind_queries, dropped = make_kind_queries(
-            gen, ctx, ref, texts, groups, seed, fuzzy_terms=not measure_only)
+            gen, ctx, ref, texts, groups, seed,
+            fuzzy_terms=fuzzy and not measure_only)
         kind_summary = {"queries": len(kind_queries),
                         "fuzzy_dropped_for_cap": dropped,
                         "make_s": time.time() - t0}
@@ -2111,6 +2434,9 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         launches = dict(runtime.launches)
         forms = dict(runtime.launch_forms)
         routes = dict(runtime.routes)
+        by_shard = {s: dict(v) for s, v in runtime.launches_by_shard.items()}
+        by_device = {d: dict(v)
+                     for d, v in runtime.launches_by_device.items()}
         shapes = {k: sorted(v.items(), key=lambda kv: -kv[1])
                   for k, v in runtime.launch_shapes.items()}
         b1 = (batcher.batches_executed, batcher.queries_batched)
@@ -2156,6 +2482,10 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
             summary["kinds"] = kind_summary
         summary["launch_shapes"] = {k: [[*shape, n] for shape, n in v[:6]]
                                     for k, v in shapes.items() if v}
+        if shards > 1:
+            summary.update({"mesh": dev.mesh.layout(),
+                            "launches_by_shard": by_shard,
+                            "launches_by_device": by_device})
         check(not bad, f"{len(bad)} answers differ from the reference, "
                        f"first: {bad[:5]}")
         check(len(results) >= n_queries, "too few queries answered")
@@ -2170,6 +2500,18 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                   f"{k} was not launched by the served queries: {launches}")
         for r in routes_needed:
             check(routes[r] > 0, f"no query took the {r} route: {routes}")
+        if shards > 1 and not measure_only:
+            for s in range(shards):
+                for k in shard_launches:
+                    check(by_shard.get(s, {}).get(k, 0) > 0,
+                          f"shard {s} ({dev.mesh.docs_devices[s]}) launched "
+                          f"no {k}: {by_shard.get(s)}")
+            # the sharded fused program takes most verified queries with a
+            # sparse driver; the rest clip or go exact
+            fused_sparse = routes["mesh_fused_sparse"]
+            check(fused_sparse > routes["mesh_to_exact"]
+                  + routes["fused_clipped"],
+                  f"mesh_fused_sparse took too few queries: {routes}")
         if kinds:
             check(kind_summary["nonzero_answers"] > len(kind_results) // 3,
                   "too few boolean, synonym and fuzzy queries matched")
@@ -2398,6 +2740,7 @@ def main(argv=None) -> int:
         timings["row_gather"] = row_gather_phase(gen)
         emit({"phase": "kernels", "seconds": time.time() - t0})
         launches = {"row_gather": probe_phase()}
+        mesh_phase()
         verified_routes = ("fused_dense", "fused_sparse", "verify_exact")
         got, served = serve_phase(
             "verified_serve", args.docs, args.seed, 1500, verified=True,
@@ -2435,6 +2778,16 @@ def main(argv=None) -> int:
         timings["tf_rows_padded"] = timings[
             "tf_rows_padded/store" if 2 * whole > got["tf_rows_padded"]
             else "tf_rows_padded"]
+        # the same corpus and mix, doc-sharded (no FUZZY: a mesh counts
+        # fuzzy candidates on the host)
+        serve_phase(
+            "sharded_serve", args.docs, args.seed, SHARDED_QUERIES,
+            verified=True, kinds=True, fuzzy=False,
+            mesh_shards=shard_count(),
+            routes_needed=("mesh_dense", "mesh_sparse", "mesh_fused_sparse",
+                           "mesh_fused_dense", "mesh_ast", "mesh_or"),
+            shard_launches=("dense_and", "ast_words", "sparse_probe.topn",
+                            "sparse_probe.compact", "tf_rows_padded"))
         got, _ = serve_phase(
             "flat_verified_serve", FLAT_DOCS, args.seed + 2, 1000,
             verified=True, layout="flat",

@@ -3,7 +3,9 @@ the port.
 
 ``state_from_jax(device_index)`` reads the JAX package's device arrays
 into numpy, in the shape ``DeviceIndex.from_state`` takes and
-``DeviceIndex.state()`` returns; ``text_state_from_jax(store)`` does the
+``DeviceIndex.state()`` returns; ``sharded_state_from_jax`` does the same
+for a JAX mesh index (``mesh_shards`` > 1), into the port's sharded
+state; ``text_state_from_jax(store)`` does the
 same for the text store and ``DeviceTextStore.from_state``. Tests use them
 to show that both packages hold, and verify over, the same data. They
 touch the JAX arrays only through ``np.asarray`` and import no JAX.
@@ -43,6 +45,46 @@ def state_from_jax(device_index) -> dict:
             "postings": post[:P].astype(np.int32),
             "offsets": np.asarray(d._dev_offsets, dtype=np.int64),
             "lengths": lengths.copy(),
+            "dense_row": dense_row.copy(),
+            "deleted": np.asarray(d.deleted_host, dtype=np.uint32).copy(),
+            "ones_row": int(d.ones_row), "zeros_row": int(d.zeros_row),
+            "n_words": int(d.n_words),
+            "n_docs_capacity": int(d.n_docs_capacity)}
+
+
+def sharded_state_from_jax(device_index) -> dict:
+    """A JAX mesh ``DeviceIndex`` -> the port's sharded state (see
+    ``index.device_index.sharded_csr``).
+
+    The JAX doc-sharded CSR is an (S, Pmax + pad) matrix of shard-local
+    ids that keeps every term's slice, dense terms' too, zero-padded to
+    the largest shard and ended by a sentinel tail. The port's shards keep
+    sparse terms' slices only, each exactly its size, with dense terms'
+    offsets past each shard's end: the dense slices and the padding are
+    dropped here."""
+    d = device_index
+    if d.postings_sh is None:
+        raise ValueError("sharded_state_from_jax: not a mesh index")
+    dense_row = np.asarray(d.dense_row, dtype=np.int32)
+    keep = dense_row < 0
+    post_sh = np.asarray(d.postings_sh)
+    lengths_sh = np.asarray(d.lengths_sh, dtype=np.int64)
+    S, V = lengths_sh.shape
+    parts = []
+    for s in range(S):
+        n = int(lengths_sh[s].sum())
+        parts.append(post_sh[s, :n][np.repeat(keep, lengths_sh[s])]
+                     .astype(np.int32))
+    lengths_sh = np.where(keep[None, :], lengths_sh, 0)
+    offsets_sh = np.zeros((S, V), dtype=np.int64)
+    if V:
+        np.cumsum(lengths_sh[:, :-1], axis=1, out=offsets_sh[:, 1:])
+    offsets_sh[:, ~keep] = np.asarray([p.size for p in parts],
+                                      dtype=np.int64)[:, None]
+    return {"bitmaps": np.asarray(d.bitmaps, dtype=np.uint32),
+            "postings_sh": parts, "offsets_sh": offsets_sh,
+            "lengths_sh": lengths_sh,
+            "lengths": np.asarray(d.lengths).copy(),
             "dense_row": dense_row.copy(),
             "deleted": np.asarray(d.deleted_host, dtype=np.uint32).copy(),
             "ones_row": int(d.ones_row), "zeros_row": int(d.zeros_row),

@@ -20,6 +20,17 @@ as word-bitmap algebra in one launch of K2's boolean program (every
 leaf's dense rows AND'ed, its sparse slices scattered into words, the
 tree over them); ``search_or`` is K2's OR form; ``search_by_threshold``
 is the fuzzy candidate count.
+
+**Doc-sharded mesh** (``mesh_shards`` S > 1, ``parallel/mesh.py``): shard s
+owns doc ids ``[s * Ds, (s + 1) * Ds)`` with ``Ds = n_docs_capacity / S``
+and holds, on its own device, the bitmap block (V, W / S), tombstones and
+filter words (W / S,) and a CSR of its postings as shard-local ids (sparse
+terms only, as the single-device CSR; host ``offsets_sh`` / ``lengths_sh``
+(S, V) int64). Shard s runs on card s mod the card count, so fewer cards
+than shards still run S shards; an S that does not divide ``n_words`` is
+a configuration error. Every route runs its single-device kernel once a
+shard and merges the shards' counts and first ids (``parallel/mesh.py``);
+the fuzzy candidate count runs on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch
 
 from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
+from ..parallel import mesh as pmesh
 from ..ops.posting_ops import (gather_slices, pack_sparse_args,
                                sparse_probe, split_selection)
 from ..ops.threshold_ops import threshold_count_bitmap, threshold_merge
@@ -104,14 +116,68 @@ class SearchOptions:
     count_only: bool = False  # COUNT fast path: skip id materialization
 
 
+def check_mesh_shards(n_words: int, shards: int, cuda: bool) -> None:
+    """A mesh of ``shards`` doc shards must cut the index's words evenly
+    (and, for the kernels' 16-byte vectors, into blocks of a multiple of
+    4 words on the card): anything else is a configuration error."""
+    if shards < 1 or n_words % shards:
+        raise ValueError(
+            f"device.mesh_shards={shards} does not divide the index's "
+            f"{n_words} bitmap words (a power of two up to 1024 does)")
+    if cuda and (n_words // shards) % 4:
+        raise ValueError(
+            f"device.mesh_shards={shards} leaves {n_words // shards} words "
+            "a shard; the CUDA kernels need a multiple of 4")
+
+
+def sharded_csr(built: BuiltIndex, dense_row: np.ndarray,
+                n_docs_capacity: int, shards: int) -> dict:
+    """The doc-range-sharded device CSR: shard s keeps the postings of
+    sparse terms whose doc id lies in [s * Ds, (s + 1) * Ds), as
+    shard-local ids, sorted per term. Dense terms' slices are dropped, as
+    the single-device CSR drops them (every device path reads dense terms
+    from bitmap rows), and their offsets point past each shard's end.
+    -> postings_sh (S arrays, each its shard's size, no padding),
+    offsets_sh and lengths_sh (S, V) int64."""
+    V = built.n_terms
+    Ds = n_docs_capacity // shards
+    keep = dense_row < 0
+    lens = np.where(keep, built.lengths, 0).astype(np.int64)
+    post = np.asarray(built.postings, dtype=np.int32)
+    if not keep.all():
+        post = post[np.repeat(keep, built.lengths)]
+    shard_of = post // Ds
+    tid = np.repeat(np.arange(V, dtype=np.int64), lens)
+    lengths_sh = np.ascontiguousarray(np.bincount(
+        tid * shards + shard_of, minlength=V * shards
+    ).reshape(V, shards).T).astype(np.int64)
+    del tid
+    offsets_sh = np.zeros((shards, V), dtype=np.int64)
+    if V:
+        np.cumsum(lengths_sh[:, :-1], axis=1, out=offsets_sh[:, 1:])
+    parts = []
+    for s in range(shards):
+        # a term's postings stay in order: a per-shard mask is stable
+        parts.append((post[shard_of == s] - s * Ds).astype(np.int32))
+    offsets_sh[:, ~keep] = np.asarray([p.size for p in parts],
+                                      dtype=np.int64)[:, None]
+    return {"postings_sh": parts, "offsets_sh": offsets_sh,
+            "lengths_sh": lengths_sh}
+
+
 def host_state(built: BuiltIndex, dense_df_ratio: float = 0.01,
-               max_dense_terms: int = 8192) -> dict:
+               max_dense_terms: int = 8192, mesh_shards: int = 1,
+               cuda: bool = False) -> dict:
     """The index's arrays, built on the host: bitmaps (D+2, W) uint32,
     postings (P,) int32 without dense slices, offsets int64, lengths,
-    dense_row, deleted (W,) uint32 and the scalar layout fields."""
+    dense_row, deleted (W,) uint32 and the scalar layout fields. With
+    mesh_shards S > 1 the CSR is ``sharded_csr``'s in place of postings
+    and offsets."""
     V = built.n_terms
     n_docs_capacity = DeviceIndex._capacity(built.max_doc_id)
     n_words = n_docs_capacity // 32
+    if mesh_shards > 1:
+        check_mesh_shards(n_words, mesh_shards, cuda)
     df = built.lengths
     dense_min_df = max(int(dense_df_ratio * max(built.n_docs, 1)), 1)
     dense = np.flatnonzero(df >= dense_min_df)
@@ -141,6 +207,15 @@ def host_state(built: BuiltIndex, dense_df_ratio: float = 0.01,
         del ids, row
     bm[n_dense] = np.uint32(0xFFFFFFFF)
 
+    state = {"bitmaps": bm, "lengths": np.asarray(built.lengths),
+             "dense_row": dense_row,
+             "deleted": np.zeros(n_words, dtype=np.uint32),
+             "ones_row": n_dense, "zeros_row": n_dense + 1,
+             "n_words": n_words, "n_docs_capacity": n_docs_capacity}
+    if mesh_shards > 1:
+        state.update(sharded_csr(built, dense_row, n_docs_capacity,
+                                 mesh_shards))
+        return state
     postings = np.asarray(built.postings, dtype=np.int32)
     offsets = np.asarray(built.offsets, dtype=np.int64)
     if n_dense:
@@ -151,40 +226,51 @@ def host_state(built: BuiltIndex, dense_df_ratio: float = 0.01,
         offsets = np.zeros(V, dtype=np.int64)
         np.cumsum(dev_len[:-1], out=offsets[1:])
         offsets[dense] = postings.size  # past the end: gathers sentinels
-    return {"bitmaps": bm, "postings": postings, "offsets": offsets,
-            "lengths": np.asarray(built.lengths), "dense_row": dense_row,
-            "deleted": np.zeros(n_words, dtype=np.uint32),
-            "ones_row": n_dense, "zeros_row": n_dense + 1,
-            "n_words": n_words, "n_docs_capacity": n_docs_capacity}
+    state.update({"postings": postings, "offsets": offsets})
+    return state
 
 
 class DeviceIndex:
-    """Immutable compiled index segment resident on one torch device."""
+    """Immutable compiled index segment resident on one torch device, or
+    doc-sharded over a mesh of devices (``mesh_shards`` > 1 or ``mesh``)."""
 
     def __init__(self, built: BuiltIndex, dense_df_ratio: float = 0.01,
                  max_dense_terms: int = 8192,
                  candidate_buckets=(2048, 8192, 32768, 65536),
-                 device=None, mesh_shards: int = 1):
-        if mesh_shards > 1:
-            not_ported(__name__, "DeviceIndex(mesh_shards > 1)", "13")()
+                 device=None, mesh_shards: int = 1, mesh=None):
+        if mesh is None and mesh_shards > 1:
+            mesh = pmesh.make_mesh(devices=pmesh.default_devices(
+                mesh_shards, device))
+        shards = 1 if mesh is None else mesh.shape["docs"]
+        cuda = mesh is not None and mesh.home.type == "cuda"
         self._setup(built, host_state(built, dense_df_ratio,
-                                      max_dense_terms),
-                    candidate_buckets, device)
+                                      max_dense_terms, shards, cuda),
+                    candidate_buckets, device, mesh)
 
     @classmethod
     def from_state(cls, state: dict, built: BuiltIndex, device=None,
-                   candidate_buckets=(2048, 8192, 32768, 65536)
-                   ) -> "DeviceIndex":
+                   candidate_buckets=(2048, 8192, 32768, 65536),
+                   mesh=None) -> "DeviceIndex":
         """Build from a ``host_state``-shaped dict (for example one read
-        from a JAX ``DeviceIndex`` by ``mygramdb_tpu_torch.convert``)."""
+        from a JAX ``DeviceIndex`` by ``mygramdb_tpu_torch.convert``). A
+        sharded state (``postings_sh``) builds on ``mesh``, or on one made
+        for its shard count."""
         self = cls.__new__(cls)
-        self._setup(built, state, candidate_buckets, device)
+        if mesh is None and "postings_sh" in state:
+            mesh = pmesh.make_mesh(devices=pmesh.default_devices(
+                len(state["postings_sh"]), device))
+        self._setup(built, state, candidate_buckets, device, mesh)
         return self
 
-    def _setup(self, built, state, candidate_buckets, device) -> None:
+    def _setup(self, built, state, candidate_buckets, device,
+               mesh=None) -> None:
         self.built = built
         self.candidate_buckets = tuple(candidate_buckets)
-        dev = torch.device(device) if device is not None else runtime.device()
+        if mesh is not None:
+            dev = mesh.home
+        else:
+            dev = (torch.device(device) if device is not None
+                   else runtime.device())
         if dev.type == "cuda":
             runtime.kernels()  # build now: a failure fails construction
         self._device = dev
@@ -195,34 +281,87 @@ class DeviceIndex:
         self.zeros_row = int(state["zeros_row"])
         self.n_dense = self.ones_row
         self.lengths = np.asarray(state["lengths"])
+        self.deleted_host = np.array(state["deleted"], dtype=np.uint32)
+        self._del_lock = threading.Lock()
+        self.batcher = None  # optional MicroBatcher (server attaches)
+        # filter rows are full (W,) rows on the home device; the mesh
+        # programs cut them per shard
+        self._row_sharding = None
+        self.positional = None  # the positional engine: item 14
+        self.mesh = mesh
+        if mesh is not None:
+            self._setup_mesh(state, mesh)
+            return
+        self.postings_sh = None
         self.dev_offsets = np.asarray(state["offsets"], dtype=np.int64)
         self.bitmaps = runtime.to_device(state["bitmaps"], dev)
         self.postings = runtime.to_device(
             np.asarray(state["postings"], dtype=np.int32), dev)
-        self.deleted_host = np.array(state["deleted"], dtype=np.uint32)
         self.deleted = runtime.to_device(self.deleted_host, dev)
         self._ones_words = torch.full((self.n_words,), -1, dtype=torch.int32,
                                       device=dev)
-        self._del_lock = threading.Lock()
-        self.batcher = None  # optional MicroBatcher (server attaches)
-        # single-device port: no mesh, no sharded CSR, no positional engine
-        self.mesh = None
-        self._row_sharding = None
-        self.postings_sh = None
-        self.positional = None
-        self.text_doc_sharding = None
+
+    def _setup_mesh(self, state: dict, mesh) -> None:
+        """Place each shard's bitmap block, tombstone and all-ones words
+        and CSR on its device (contiguous tensors of their own)."""
+        from ..utils.structured_log import StructuredLog
+        devices = mesh.docs_devices
+        S = len(devices)
+        check_mesh_shards(self.n_words, S, mesh.home.type == "cuda")
+        if len(state["postings_sh"]) != S:
+            raise ValueError(f"a state of {len(state['postings_sh'])} "
+                             f"shards for a mesh of {S}")
+        self.words_local = self.n_words // S
+        self.shard_docs = self.words_local * 32
+        self.postings = None
+        self.dev_offsets = None
+        self.offsets_sh = np.asarray(state["offsets_sh"], dtype=np.int64)
+        self.lengths_sh = np.asarray(state["lengths_sh"], dtype=np.int64)
+        self.bitmaps = pmesh.split_words(
+            np.asarray(state["bitmaps"], dtype=np.uint32), devices)
+        self.postings_sh = pmesh.ShardedTensor(
+            [runtime.to_device(np.asarray(p, dtype=np.int32), d)
+             for p, d in zip(state["postings_sh"], devices)], axis=0)
+        self.deleted = pmesh.split_words(self.deleted_host, devices)
+        self._ones_words = pmesh.ShardedTensor(
+            [torch.full((self.words_local,), -1, dtype=torch.int32,
+                        device=d) for d in devices], axis=0)
+        StructuredLog().event("device_index_mesh").field(
+            "shards", S).field("layout", mesh.layout()).field(
+            "shard_docs", self.shard_docs).info()
+
+    @property
+    def text_doc_sharding(self):
+        """The mesh a text store shards its padded rows over (with the
+        index, so each shard verifies its own candidates); None on one
+        device."""
+        return self.mesh
 
     def state(self) -> dict:
         """The index's arrays read back to the host (``host_state`` keys)."""
-        return {"bitmaps": self.bitmaps.cpu().numpy().view(np.uint32),
-                "postings": self.postings.cpu().numpy(),
-                "offsets": self.dev_offsets.copy(),
-                "lengths": self.lengths.copy(),
-                "dense_row": self.dense_row.copy(),
-                "deleted": self.deleted.cpu().numpy().view(np.uint32),
-                "ones_row": self.ones_row, "zeros_row": self.zeros_row,
-                "n_words": self.n_words,
-                "n_docs_capacity": self.n_docs_capacity}
+        out = {"bitmaps": self.bitmaps.cpu().numpy().view(np.uint32),
+               "lengths": self.lengths.copy(),
+               "dense_row": self.dense_row.copy(),
+               "deleted": self.deleted.cpu().numpy().view(np.uint32),
+               "ones_row": self.ones_row, "zeros_row": self.zeros_row,
+               "n_words": self.n_words,
+               "n_docs_capacity": self.n_docs_capacity}
+        if self.mesh is not None:
+            out.update({"postings_sh": [p.cpu().numpy()
+                                        for p in self.postings_sh.parts],
+                        "offsets_sh": self.offsets_sh.copy(),
+                        "lengths_sh": self.lengths_sh.copy()})
+        else:
+            out.update({"postings": self.postings.cpu().numpy(),
+                        "offsets": self.dev_offsets.copy()})
+        return out
+
+    def _words_on_device(self, words: np.ndarray):
+        """(W,) host words -> the device: one tensor, or a ShardedTensor
+        of per-shard blocks on a mesh."""
+        if self.mesh is not None:
+            return pmesh.split_words(words, self.mesh.docs_devices)
+        return runtime.to_device(words, self._device)
 
     def _tensor(self, values, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype
@@ -256,7 +395,7 @@ class DeviceIndex:
             else:
                 np.bitwise_and.at(self.deleted_host, ids >> 5,
                                   np.bitwise_not(bits))
-            self.deleted = runtime.to_device(self.deleted_host, self._device)
+            self.deleted = self._words_on_device(self.deleted_host)
 
     def mark_deleted(self, doc_ids: Sequence[int]) -> None:
         self._set_deleted(doc_ids, True)
@@ -330,7 +469,6 @@ class DeviceIndex:
                                              extra=tuple(extra_words or ()))
             ids = ids[ids >= 0][:opts.limit]
             return total, ids.astype(np.int32)
-        runtime.count_route("dense_unbatched")
         rows = list(dense_rows)
         nrows = list(nd_rows)
         if ns_tids:
@@ -339,6 +477,10 @@ class DeviceIndex:
             nb = bitmap_ops.make_bitmap_from_ids(ids, self.n_words)
             extra_words = list(extra_words) + [
                 runtime.to_device(np.bitwise_not(nb), self._device)]
+        if self.mesh is not None:
+            return self._dense_and_path_sharded(rows, nrows, extra_words,
+                                                opts)
+        runtime.count_route("dense_unbatched")
         has_not = bool(nrows)
         if not nrows:
             nrows = [self.zeros_row]
@@ -360,12 +502,34 @@ class DeviceIndex:
             has_not=has_not, has_extra=F > 0)
         return int(count[0]), self._bitmap_to_ids(res[0].cpu().numpy())
 
+    def _dense_and_path_sharded(self, rows, nrows, extra_words, opts):
+        """The unbatched dense AND on the mesh: K1 a shard, merged."""
+        runtime.count_route("mesh_dense")
+        runtime.dispatches.bump()
+        devices = self.mesh.docs_devices
+        extra = self._pack_extra(extra_words) if extra_words else None
+        rows_np = np.asarray([rows], dtype=np.int32)
+        nrows_np = np.asarray([nrows], dtype=np.int32) if nrows else None
+        if opts.count_only or opts.limit > 0:
+            n = 0 if opts.count_only else min(
+                _bucket_of(opts.limit, _LIMIT_BUCKETS), self.n_docs_capacity)
+            out = pmesh.dense_topn(devices, self.bitmaps, self.deleted,
+                                   rows_np, nrows_np, extra, n,
+                                   opts.descending, self.shard_docs)
+            ids = out[0, 1:]
+            return int(out[0, 0]), ids[ids >= 0][:opts.limit].astype(np.int32)
+        count, words = pmesh.dense_words(devices, self.bitmaps, self.deleted,
+                                         rows_np, nrows_np, extra)
+        return int(count[0]), self._bitmap_to_ids(words[0])
+
     def _pack_extra(self, extra_words) -> torch.Tensor:
         """Stack extra AND-filter rows (an all-ones row when there are
         none, which is the AND identity). A row of another width was made
         for another segment: a swap raced the query, and
         ``FilterRowsRaced`` sends the pipeline to its exact host path."""
         if not extra_words:
+            if self.mesh is not None:
+                return None  # the mesh programs take no filter rows as None
             return self._ones_words[None, :]
         if any(w.shape != (self.n_words,) for w in extra_words):
             # the pipeline's import chain reaches this module
@@ -392,6 +556,10 @@ class DeviceIndex:
         dlen = int(self.lengths[driver])
         if dlen == 0:
             return 0, np.empty(0, dtype=np.int32)
+        if self.mesh is not None:
+            return self._sparse_and_path_sharded(
+                driver, sparse_tids[1:], dense_rows, ns_tids, nd_rows,
+                extra_words, opts)
         C = self._cand_bucket(dlen)
         sp_off, sp_len, sp_inv = [], [], []
         for t, inv in ([(t, False) for t in sparse_tids[1:]]
@@ -443,6 +611,53 @@ class DeviceIndex:
         if opts.limit > 0:
             return total, ids[ids >= 0][:opts.limit].astype(np.int32)
         return total, ids.astype(np.int32)
+
+    def _sparse_and_path_sharded(self, driver, probes, dense_rows, ns_tids,
+                                 nd_rows, extra_words, opts):
+        """The sparse program on the mesh: K3's probe entry a shard over
+        its CSR slices (per-shard offsets and lengths), filter rows on the
+        device, the covered-exact query probe-free as on one device (the
+        JAX mesh probes it), then the merge. Not batched, as in the JAX
+        package."""
+        S = self.mesh.shape["docs"]
+        C = self._cand_bucket(int(self.lengths[driver]))
+        sp_tids = list(probes) + list(ns_tids)
+        Ks = _k_bucket(len(sp_tids)) if sp_tids else 1
+        Cmax = self._cand_bucket(
+            max([1] + [int(self.lengths[t]) for t in sp_tids]))
+        sp_off = np.zeros((1, Ks, S), dtype=np.int64)
+        sp_len = np.zeros((1, Ks, S), dtype=np.int64)
+        sp_inv = np.ones((1, Ks, S), dtype=bool)
+        for i, t in enumerate(sp_tids):
+            sp_off[0, i] = self.offsets_sh[:, t]
+            sp_len[0, i] = self.lengths_sh[:, t]
+            sp_inv[0, i] = i >= len(probes)
+        dn_rows = list(dense_rows) + list(nd_rows)
+        dn_inv = [False] * len(dense_rows) + [True] * len(nd_rows)
+        probe_free = not sp_tids and not dn_rows
+        Kd = _k_bucket(len(dn_rows)) if dn_rows else 1
+        dn_rows += [self.ones_row] * (Kd - len(dn_rows))
+        dn_inv += [False] * (Kd - len(dn_inv))
+        # every match of an unlimited query fits C: it is at most dlen
+        if opts.count_only:
+            lb = 0
+        elif opts.limit > 0:
+            lb = min(_bucket_of(opts.limit, _LIMIT_BUCKETS), C)
+        else:
+            lb = C
+        runtime.dispatches.bump()
+        runtime.count_route("mesh_sparse")
+        out = pmesh.sharded_sparse_query(
+            self.mesh, self.postings_sh, self.bitmaps, self.deleted,
+            self.offsets_sh[None, :, driver], self.lengths_sh[None, :, driver],
+            sp_off, sp_len, sp_inv, [dn_rows], [dn_inv], C=C, Cmax=Cmax,
+            limit_b=lb, descending=opts.descending and opts.limit > 0,
+            shard_docs=self.shard_docs, words_local=self.words_local,
+            extra=self._pack_extra(extra_words) if extra_words else None,
+            probe_free=probe_free)
+        total = int(out[0, 0])
+        ids = out[0, 1:]
+        return total, ids[ids >= 0][:opts.limit or None].astype(np.int32)
 
     # ------------------------------------------------------------------
     # Fused verified search (one program: match + verify + score + top-n)
@@ -499,6 +714,20 @@ class DeviceIndex:
         empty = (0, np.empty(0, dtype=np.int32),
                  np.empty(0, dtype=np.float32), 0)
         extra = self._pack_extra(list(extra_words)) if extra_words else None
+        if self.mesh is not None:
+            # the sharded programs verify over the shards' own text rows;
+            # the flat layout is not sharded, and the non-overlapping
+            # count of a sparse driver has no sharded program (as in the
+            # JAX package): both take the exact path, counted
+            if not getattr(text_store, "doc_sharded", False) or (
+                    sparse_tids and nonoverlap):
+                runtime.count_route("mesh_to_exact")
+                return None
+            if sparse_tids:
+                return self._search_and_verified_sharded(
+                    sparse_tids, text_store, needles, needle_lens, limit_b,
+                    descending, extra, score_mode=score_mode, idf=idf_row,
+                    k1=k1, b=b, avgdl=avgdl, require_match=require_match)
         if sparse_tids:
             sparse_tids = sorted(sparse_tids,
                                  key=lambda t: int(self.lengths[t]))
@@ -574,7 +803,8 @@ class DeviceIndex:
             return None
         lb = min(limit_b, C)
         vbound = max(min(dfs), 1)  # AND count <= least df
-        runtime.count_route("fused_dense")
+        runtime.count_route("fused_dense" if self.mesh is None
+                            else "mesh_fused_dense")
         if self.batcher is not None:
             out = self.batcher.submit_fused_verify(
                 rows, needles, needle_lens, text_store, C, lb, descending,
@@ -583,6 +813,18 @@ class DeviceIndex:
                 require_match=require_match, extra=tuple(extra_words),
                 vbound=vbound)
             return self._fused_result(out)
+        if self.mesh is not None:
+            pre, clipped, count, ids, scores = pmesh.split_fused(
+                pmesh.sharded_dense_fused_verify(
+                    self.mesh, self.bitmaps, self.deleted, text_store,
+                    np.asarray([rows], dtype=np.int32), needles[None],
+                    needle_lens[None], extra, C=C, n=lb,
+                    maxT=text_store.maxT, descending=descending,
+                    shard_docs=self.shard_docs, score_mode=score_mode,
+                    require_match=require_match, idf=idf_row[None], k1=k1,
+                    b=b, avgdl=avgdl, nonoverlap=nonoverlap), lb, score_mode)
+            return self._fused_result(self._sharded_result(
+                pre, clipped, count, ids, scores))
         out = fused_ops.search_verify_topn_batch(
             self.bitmaps, self._tensor([rows], torch.int32), self.deleted,
             extra, text_store, C, lb, needles[None], needle_lens[None],
@@ -590,6 +832,68 @@ class DeviceIndex:
             score_mode=score_mode, nonoverlap=nonoverlap,
             require_match=require_match, vbound=vbound)
         return self._fused_result(self._unbatched(out, C, score_mode))
+
+    def _search_and_verified_sharded(self, sparse_tids, text_store, needles,
+                                     needle_lens, limit_b: int,
+                                     descending: bool, extra,
+                                     score_mode: bool = False, idf=None,
+                                     k1: float = 1.2, b: float = 0.75,
+                                     avgdl: float = 1.0,
+                                     require_match: bool = True):
+        """The fused verified search on the mesh, with the JAX mesh's
+        shapes: C from the longest shard slice of the driver, Kv =
+        min(C, 4096), probe-free where C <= Kv (the window verify
+        subsumes every gram), the sparse probes otherwise and never the
+        dense ones (``parallel.mesh.sharded_fused_verify``). None (the
+        exact path) when a slice passes the buckets or a shard's
+        survivors passed Kv."""
+        S = self.mesh.shape["docs"]
+        sparse_tids = sorted(sparse_tids, key=lambda t: int(self.lengths[t]))
+        driver = sparse_tids[0]
+        if int(self.lengths[driver]) == 0:
+            return (0, np.empty(0, dtype=np.int32),
+                    np.empty(0, dtype=np.float32), 0)
+        C = self.verify_cand_bucket(int(self.lengths_sh[:, driver].max()))
+        Kv = min(C, self._KV_BUCKET)
+        probes = sparse_tids[1:] if C > Kv else []
+        Ks = _k_bucket(len(probes)) if probes else 1
+        sp_off = np.zeros((1, Ks, S), dtype=np.int64)
+        sp_len = np.zeros((1, Ks, S), dtype=np.int64)
+        sp_inv = np.ones((1, Ks, S), dtype=bool)
+        for j, t in enumerate(probes):
+            sp_off[0, j] = self.offsets_sh[:, t]
+            sp_len[0, j] = self.lengths_sh[:, t]
+            sp_inv[0, j] = False
+        Cmax = self._cand_bucket(max([1] + [
+            int(self.lengths_sh[:, t].max()) for t in probes]))
+        if C > self.candidate_buckets[-1] or \
+                Cmax > self.candidate_buckets[-1]:
+            runtime.count_route("mesh_to_exact")
+            return None
+        lb = min(limit_b, Kv)
+        runtime.count_route("mesh_fused_sparse")
+        out = pmesh.sharded_fused_verify(
+            self.mesh, self.postings_sh, self.bitmaps, self.deleted,
+            text_store, self.offsets_sh[None, :, driver],
+            self.lengths_sh[None, :, driver], sp_off, sp_len, sp_inv,
+            needles[None], needle_lens[None], extra, C=C, Cmax=Cmax, Kv=Kv,
+            n=lb, maxT=self.verify_maxT(text_store, driver),
+            descending=descending, shard_docs=self.shard_docs,
+            words_local=self.words_local, score_mode=score_mode,
+            require_match=require_match, idf=idf[None], k1=k1, b=b,
+            avgdl=avgdl, ones_row=self.ones_row)
+        return self._fused_result(self._sharded_result(
+            *pmesh.split_fused(out, lb, score_mode)))
+
+    @staticmethod
+    def _sharded_result(pre, clipped, count, ids, scores):
+        """One query's row of a sharded fused program -> (total, ids,
+        scores, pre), or None when a shard clipped."""
+        if int(clipped[0]):
+            return None
+        sc = (scores[0] if scores is not None
+              else np.zeros(ids.shape[1], dtype=np.float32))
+        return int(count[0]), ids[0].astype(np.int32), sc, int(pre[0])
 
     @staticmethod
     def _unbatched(out, width: int, score_mode: bool):
@@ -628,8 +932,7 @@ class DeviceIndex:
             (dense_rs if r >= 0 else sparse).append(r if r >= 0 else t)
         keep = np.ones(candidates.size, dtype=bool)
         if dense_rs:
-            rows = self.bitmaps[self._tensor(dense_rs, torch.int64)]
-            for row in rows.cpu().numpy().view(np.uint32):
+            for row in self._dense_rows_host(dense_rs):
                 keep &= self._probe_words(row, candidates).astype(bool)
         for t in sparse:
             p = self.postings_of(t)
@@ -638,6 +941,16 @@ class DeviceIndex:
             pos = np.minimum(np.searchsorted(p, candidates), p.size - 1)
             keep &= p[pos] == candidates
         return candidates[keep]
+
+    def _dense_rows_host(self, rows: Sequence[int]) -> np.ndarray:
+        """Bitmap rows pulled to the host -> (len(rows), W) uint32."""
+        if self.mesh is None:
+            return self.bitmaps[self._tensor(rows, torch.int64)
+                                ].cpu().numpy().view(np.uint32)
+        return np.concatenate(
+            [p[torch.as_tensor(list(rows), device=p.device)
+               ].cpu().numpy().view(np.uint32)
+             for p in self.bitmaps.parts], axis=1)
 
     # ------------------------------------------------------------------
     # Boolean-AST device evaluation
@@ -662,7 +975,10 @@ class DeviceIndex:
                     dense_rows, sparse = [self.zeros_row], []
             rows_l.append(dense_rows or [self.ones_row])
             sp_l.append(list(sparse))
-            max_len = max([max_len] + [int(self.lengths[t]) for t in sparse])
+            # on the mesh a leaf's slice is its longest shard slice
+            max_len = max([max_len] + [
+                int(self.lengths[t]) if self.mesh is None
+                else int(self.lengths_sh[:, t].max()) for t in sparse])
         if self._cand_bucket(max_len) > self.candidate_buckets[-1]:
             runtime.count_route("ast_host")
             return None
@@ -670,14 +986,31 @@ class DeviceIndex:
         K = max(len(r) for r in rows_l)
         S = max(len(sp) for sp in sp_l)
         rows = np.full((T, K), self.ones_row, dtype=np.int32)
+        for i in range(T):
+            rows[i, :len(rows_l[i])] = rows_l[i]
+        runtime.dispatches.bump()
+        if self.mesh is not None:
+            # per-shard slices; a real term's shard-empty slice gives zeros
+            Ssh = self.mesh.shape["docs"]
+            offs = np.zeros((T, S, Ssh), dtype=np.int64)
+            lens = np.zeros((T, S, Ssh), dtype=np.int64)
+            real = np.zeros((T, S), dtype=bool)
+            for i, sparse in enumerate(sp_l):
+                for j, t in enumerate(sparse):
+                    offs[i, j] = self.offsets_sh[:, t]
+                    lens[i, j] = self.lengths_sh[:, t]
+                    real[i, j] = True
+            runtime.count_route("mesh_ast")
+            return pmesh.sharded_ast_words(
+                self.mesh, self.postings_sh, self.bitmaps, self.deleted,
+                universe, rows, offs, lens, real, sig=sig, bucket=max_len,
+                words_local=self.words_local)
         offs = np.zeros((T, S), dtype=np.int64)
         lens = np.zeros((T, S), dtype=np.int64)
         for i in range(T):
-            rows[i, :len(rows_l[i])] = rows_l[i]
             for j, t in enumerate(sp_l[i]):
                 offs[i, j] = self.dev_offsets[t]
                 lens[i, j] = self.lengths[t]
-        runtime.dispatches.bump()
         runtime.count_route("ast_device")
         # one launch of K2's boolean program (reference in-process Roaring
         # set ops, index.cpp:378-446)
@@ -689,10 +1022,9 @@ class DeviceIndex:
     def universe_words(self, doc_ids: np.ndarray) -> torch.Tensor:
         """Device bitmap of all live docs (NOT complement base), built on
         the host from the doc store's id set and uploaded once per segment
-        generation (the caller caches it)."""
-        return runtime.to_device(
-            bitmap_ops.make_bitmap_from_ids(doc_ids, self.n_words),
-            self._device)
+        generation (the caller caches it); per shard on a mesh."""
+        return self._words_on_device(
+            bitmap_ops.make_bitmap_from_ids(doc_ids, self.n_words))
 
     # ------------------------------------------------------------------
     def search_or(self, tids: Sequence[int]) -> np.ndarray:
@@ -700,14 +1032,19 @@ class DeviceIndex:
         OR / NOT path). Tombstones applied."""
         if not tids:
             return np.empty(0, dtype=np.int32)
-        runtime.count_route("or_rows")
+        runtime.count_route("or_rows" if self.mesh is None else "mesh_or")
         dense_rows, sparse_tids = self.classify(list(tids))
         parts = []
         if dense_rows:
-            words = bitmap_ops.or_rows(
-                self.bitmaps, self._tensor([dense_rows], torch.int32))[0]
-            parts.append(self._bitmap_to_ids(
-                words.cpu().numpy().view(np.uint32) & ~self.deleted_host))
+            if self.mesh is not None:  # K2's OR a shard
+                runtime.dispatches.bump()
+                words = pmesh.sharded_or_rows(
+                    self.mesh, self.bitmaps, np.asarray([dense_rows]))[0]
+            else:
+                words = bitmap_ops.or_rows(
+                    self.bitmaps, self._tensor([dense_rows], torch.int32)
+                )[0].cpu().numpy().view(np.uint32)
+            parts.append(self._bitmap_to_ids(words & ~self.deleted_host))
         for t in sparse_tids:
             parts.append(self.postings_of(t))
         out = np.unique(np.concatenate(parts)).astype(np.int32)
@@ -731,6 +1068,19 @@ class DeviceIndex:
         if not tids or min_count <= 0:
             return np.empty(0, dtype=np.int32)
         dense_rows, sparse_tids = self.classify(list(tids))
+        if self.mesh is not None:
+            # no whole CSR on any device: a host count over the terms'
+            # postings, as the JAX package's mesh does (its all-dense form,
+            # a bitmap count over every id, is not cut at max_out)
+            runtime.count_route("threshold_host")
+            ids = np.concatenate([self.postings_of(t) for t in tids])
+            out = np.flatnonzero(np.bincount(ids) >= min_count
+                                 ).astype(np.int32)
+            if sparse_tids:
+                out = out[:max_out]
+            if self.deleted_host.any():
+                out = out[~self._deleted_mask(out)]
+            return out
         offs = self._tensor([self.dev_offsets[t] for t in sparse_tids],
                             torch.int64)
         lens_host = [int(self.lengths[t]) for t in sparse_tids]
@@ -765,7 +1115,8 @@ class DeviceIndex:
         opts_top = SearchOptions(limit=100, descending=True)
         for opts in (opts_all, opts_top):
             self._dense_and_path([self.ones_row], [], [], [], opts)
-        if self.postings.shape[0] > 0 and bool((self.lengths > 0).any()):
+        csr = self.postings if self.mesh is None else self.postings_sh
+        if csr.numel() > 0 and bool((self.lengths > 0).any()):
             tid = int(np.argmax(self.lengths > 0))
             if self.dense_row[tid] < 0:
                 for opts in (opts_all, opts_top):
@@ -774,8 +1125,27 @@ class DeviceIndex:
                            self._ones_words)
 
     def memory_usage(self) -> int:
-        return int(self.bitmaps.numel() * 4 + self.postings.numel() * 4
+        """Device bytes of the index (every shard's on a mesh)."""
+        csr = self.postings if self.mesh is None else self.postings_sh
+        return int(self.bitmaps.numel() * 4 + csr.numel() * 4
                    + self.deleted.numel() * 4)
+
+    def shard_memory(self) -> List[int]:
+        """Device bytes of each shard of the index (one entry on one
+        device)."""
+        if self.mesh is None:
+            return [self.memory_usage()]
+        return [int(4 * (b.numel() + p.numel() + d.numel()))
+                for b, p, d in zip(self.bitmaps.parts, self.postings_sh.parts,
+                                   self.deleted.parts)]
+
+    def per_device_sparse_bytes(self) -> int:
+        """Sparse-CSR bytes one device holds: the whole CSR on one device,
+        the largest shard's on a mesh (a card holding several shards
+        holds their sum)."""
+        if self.mesh is None:
+            return int(self.postings.numel() * 4)
+        return int(max(p.numel() for p in self.postings_sh.parts) * 4)
 
     # ------------------------------------------------------------------
     # Device paths of the JAX package not ported yet

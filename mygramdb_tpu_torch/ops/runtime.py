@@ -16,7 +16,10 @@
   calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W),
   the sparse-probe launches by (form, B, C, Ks, Kd, width, probes) and
   the boolean-program launches by (T, K, S, ops, W);
-  ``routes`` counts the queries each device route of the index served.
+  ``routes`` counts the queries each device route of the index served;
+  ``launches_by_device`` and ``launches_by_shard`` count every launch
+  and its forms again by the card it ran on and, inside a mesh program
+  (``on_shard``), by the shard it ran for.
 - ``kernel_error``: what a wrapper raises when its kernel refuses its
   inputs or fails to launch (see ``errors.py``).
 - ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
@@ -39,6 +42,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict
 
@@ -121,15 +125,29 @@ launch_shapes: Dict[str, Dict[tuple, int]] = {"reduce_rows": {},
 # ast_device the boolean trees evaluated on the device, ast_host those
 # handed back to the host by size (a leaf's slice past the last candidate
 # bucket); threshold_merge / threshold_bitmap the two fuzzy candidate
-# programs; or_rows the unions
+# programs; or_rows the unions. On a doc-sharded mesh the mesh_* routes
+# take their place: mesh_dense (batched or not), mesh_sparse,
+# mesh_fused_sparse, mesh_fused_dense, mesh_ast, mesh_or; mesh_to_exact
+# counts the verified queries a mesh hands to the exact path because no
+# sharded program takes them (the flat text layout, which is not sharded,
+# or a non-overlapping count with a sparse driver); threshold_host the
+# fuzzy candidate counts made on the host (on a mesh, as in the JAX
+# package)
 routes: Dict[str, int] = {"dense_batched": 0, "dense_unbatched": 0,
                           "sparse_batched": 0, "sparse_unbatched": 0,
                           "fused_dense": 0, "fused_sparse": 0,
                           "fused_clipped": 0, "verify_exact": 0,
                           "ast_device": 0, "ast_host": 0,
                           "threshold_merge": 0, "threshold_bitmap": 0,
-                          "or_rows": 0}
+                          "or_rows": 0, "mesh_dense": 0, "mesh_sparse": 0,
+                          "mesh_fused_sparse": 0, "mesh_fused_dense": 0,
+                          "mesh_ast": 0, "mesh_or": 0, "mesh_to_exact": 0,
+                          "threshold_host": 0}
+# device ("cuda:1") -> {kernel or form: launches}; shard -> the same
+launches_by_device: Dict[str, Dict[str, int]] = {}
+launches_by_shard: Dict[int, Dict[str, int]] = {}
 _launch_lock = threading.Lock()  # batches flush on many worker threads
+_tls = threading.local()  # the launching thread's device and shard
 
 
 def reset_launches() -> None:
@@ -139,6 +157,20 @@ def reset_launches() -> None:
                 counts[k] = 0
         for shapes in launch_shapes.values():
             shapes.clear()
+        launches_by_device.clear()
+        launches_by_shard.clear()
+
+
+@contextmanager
+def on_shard(shard):
+    """Count the launches made inside the block for mesh shard ``shard``
+    (``launches_by_shard``; None counts for no shard)."""
+    prev = getattr(_tls, "shard", None)
+    _tls.shard = shard
+    try:
+        yield
+    finally:
+        _tls.shard = prev
 
 
 def count_route(name: str, queries: int = 1) -> None:
@@ -262,6 +294,15 @@ def check_launch(err: int, name: str, forms=(), shape=None) -> None:
         launches[name] += 1
         for f in forms:
             launch_forms[f] += 1
+        keys = (name, *forms)
+        views = [launches_by_device.setdefault(
+            getattr(_tls, "device", "?"), {})]
+        shard = getattr(_tls, "shard", None)
+        if shard is not None:
+            views.append(launches_by_shard.setdefault(shard, {}))
+        for view in views:
+            for k in keys:
+                view[k] = view.get(k, 0) + 1
         if shape is not None:
             shapes = launch_shapes[name]
             shapes[shape] = shapes.get(shape, 0) + 1
@@ -272,6 +313,7 @@ def launch_on(t: torch.Tensor, entry, *args) -> int:
     current and ``stream`` its current stream: the device guard of every
     launch. -> the entry's error code."""
     idx = t.device.index
+    _tls.device = str(t.device)
     with torch.cuda.device(idx):
         return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
 

@@ -16,6 +16,11 @@ thread of whichever waiter flushes the queue. Program families:
   window-TF kernels K4, K5 or K6), grouped per shape, needle bucket,
   scoring parameters and filter rows.
 
+On a doc-sharded index (``idx.mesh``) the dense and the dense-driver
+fused programs run once a shard and merge (``parallel.mesh``): the JAX
+package gets them from XLA's partitioner. The sparse and fused-sparse
+programs of a mesh run unbatched (``DeviceIndex``), as in the JAX package.
+
 PyTorch runs eagerly, so a batch is not padded to a bucketed width (the
 JAX package pads B and K only to bound its set of compiled programs, and
 its pad lanes use the all-zeros row so that they match nothing); only a
@@ -35,6 +40,7 @@ import numpy as np
 
 from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
+from ..parallel import mesh as pmesh
 
 MAX_K = 32  # dense row bucket ceiling for batched queries
 
@@ -247,11 +253,14 @@ class MicroBatcher:
         return self.idx._pack_extra(rows) if rows else None
 
     def _finish(self, q: List[_Request], pre, count, ids, scores,
-                width: int) -> None:
+                width: int, clipped=None) -> None:
+        """Hand each waiter its row; a query clipped when its pre passed
+        ``width`` (or, on a mesh, where ``clipped`` says a shard did)."""
         self.batches_executed += 1
         self.queries_batched += len(q)
         for i, r in enumerate(q):
-            r.clipped = int(pre[i]) > width
+            r.clipped = (int(pre[i]) > width if clipped is None
+                         else bool(clipped[i]))
             r.pre = int(pre[i])
             r.total = int(count[i])
             r.ids = ids[i]
@@ -265,16 +274,24 @@ class MicroBatcher:
         rows = np.full((len(q), K), idx.ones_row, dtype=np.int32)
         for i, r in enumerate(q):
             rows[i, :len(r.rows)] = r.rows
-        nrows = np.full((len(q), 1), idx.zeros_row, dtype=np.int32)
         extra = self._extra(q)
-        count_np, ids_np = bitmap_ops.dense_search_topn_packed(
-            idx.bitmaps, runtime.to_device(rows, idx._device),
-            runtime.to_device(nrows, idx._device), idx.deleted,
-            idx._pack_extra([]) if extra is None else extra, False,
-            extra is not None, limit_b, descending)
+        if idx.mesh is not None:
+            runtime.dispatches.bump()
+            out = pmesh.dense_topn(idx.mesh.docs_devices, idx.bitmaps,
+                                   idx.deleted, rows, None, extra, limit_b,
+                                   descending, idx.shard_docs)
+            count_np, ids_np = out[:, 0], out[:, 1:]
+            runtime.count_route("mesh_dense", len(q))
+        else:
+            nrows = np.full((len(q), 1), idx.zeros_row, dtype=np.int32)
+            count_np, ids_np = bitmap_ops.dense_search_topn_packed(
+                idx.bitmaps, runtime.to_device(rows, idx._device),
+                runtime.to_device(nrows, idx._device), idx.deleted,
+                idx._pack_extra([]) if extra is None else extra, False,
+                extra is not None, limit_b, descending)
+            runtime.count_route("dense_batched", len(q))
         self.batches_executed += 1
         self.queries_batched += len(q)
-        runtime.count_route("dense_batched", len(q))
         for i, r in enumerate(q):
             r.total = int(count_np[i])
             r.ids = ids_np[i]
@@ -299,6 +316,18 @@ class MicroBatcher:
             nlens[i] = r.sparse["nlens"]
             if r.sparse.get("idf") is not None:
                 idf[i] = r.sparse["idf"]
+        if idx.mesh is not None:
+            pre, clipped, count, ids, scores = pmesh.split_fused(
+                pmesh.sharded_dense_fused_verify(
+                    idx.mesh, idx.bitmaps, idx.deleted, store, rows, ndl,
+                    nlens, self._extra(q), C=C, n=limit_b, maxT=store.maxT,
+                    descending=descending, shard_docs=idx.shard_docs,
+                    score_mode=score_mode, require_match=require_match,
+                    idf=idf, k1=k1, b=b_, avgdl=avgdl,
+                    nonoverlap=nonoverlap), limit_b, score_mode)
+            # a query clips when one of its shards passed C
+            self._finish(q, pre, count, ids, scores, C, clipped=clipped)
+            return
         out = fused_ops.search_verify_topn_batch(
             idx.bitmaps, runtime.to_device(rows, idx._device), idx.deleted,
             self._extra(q), store, C, limit_b, ndl, nlens,

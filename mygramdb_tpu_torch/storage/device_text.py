@@ -14,6 +14,14 @@ the pack (``dirty``) and needles longer than the kernel cap.
 Offsets are one int64 tensor and the flat pack carries no pad tail: the
 kernels mask their loads by document length and pack end, so neither a
 2^31-cell limit nor a TPU tiling rule shapes the layout.
+
+On a doc-sharded index (``doc_sharding``, the index's mesh) the padded
+matrix is built doc-sharded whenever the padded layout is taken: shard s
+holds rows ``[s * Ds, (s + 1) * Ds)`` and their lengths on its own device
+(``shards``), built there from its part of the flat pack, so the mesh's
+fused verify windows each shard's candidates where they are and the exact
+path's calls go to the shard that holds each candidate. The flat layout
+stays whole on the mesh's home device.
 """
 
 from __future__ import annotations
@@ -24,7 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._not_ported import not_ported
 from ..ops import runtime
 from ..ops.verify_ops import (NEEDLE_CAP, bm25_topk_device,
                               count_occurrences_device, has_self_overlap,
@@ -64,10 +71,34 @@ def _pad_on_device(flat: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+class TextShard:
+    """Rows ``[lo, lo + rows)`` of a doc-sharded padded matrix on one
+    device: what ``ops.fused`` and the exact path read of a store
+    (``codepoints`` (rows, rowT), ``lengths`` (rows,), no offsets)."""
+
+    def __init__(self, codepoints: torch.Tensor, lengths: torch.Tensor,
+                 lo: int, dtype, maxT: int, shard: int):
+        self.codepoints = codepoints
+        self.lengths = lengths
+        self.offsets = None
+        self.lo = lo
+        self.shard = shard
+        self.dtype = dtype
+        self.maxT = maxT
+        self._device = codepoints.device
+
+
 class DeviceTextStore:
+    lo = 0  # the doc id of row 0 (a TextShard's first row is not 0)
+    shard = None  # a TextShard's index on the mesh
+    doc_sharded = False
+    shards: List[TextShard] = []
+
     def __init__(self, texts_by_doc: Dict[int, str], capacity: int,
-                 device=None):
-        """texts_by_doc: doc id -> normalized text (snapshot at build)."""
+                 device=None, doc_sharding=None):
+        """texts_by_doc: doc id -> normalized text (snapshot at build).
+        doc_sharding: the index's mesh, or None."""
+        self._doc_sharding = doc_sharding
         ids_arr = np.asarray(list(texts_by_doc.keys()), dtype=np.int64)
         lens_arr = np.asarray([len(t) for t in texts_by_doc.values()],
                               dtype=np.int64)
@@ -82,14 +113,15 @@ class DeviceTextStore:
                        doc_sharding=None) -> "DeviceTextStore":
         """Build from a hybrid DocumentStore. The frozen columnar base
         streams straight from its utf-8 blob; post-freeze overlay texts
-        append after, shadowing their frozen rows."""
-        if doc_sharding is not None:
-            not_ported(__name__, "DeviceTextStore(doc_sharding)", "13")()
+        append after, shadowing their frozen rows. doc_sharding: the
+        index's mesh (the padded rows shard with the index), or None."""
         frozen = getattr(doc_store, "frozen", None)
         if frozen is None or frozen.txt_blob is None:
-            return cls(doc_store.texts_snapshot(), capacity, device)
+            return cls(doc_store.texts_snapshot(), capacity, device,
+                       doc_sharding)
         overlay = doc_store.text_overlay()
-        fast = cls._from_frozen_native(frozen, overlay, capacity, device)
+        fast = cls._from_frozen_native(frozen, overlay, capacity, device,
+                                       doc_sharding)
         if fast is not None:
             return fast
         ov_ids = np.asarray(list(overlay.keys()), dtype=np.int64)
@@ -115,6 +147,7 @@ class DeviceTextStore:
             flat_parts.append(np.frombuffer(
                 "".join(texts).encode("utf-32-le"), dtype=np.uint32))
         obj = cls.__new__(cls)
+        obj._doc_sharding = doc_sharding
         obj._build(
             np.concatenate(id_parts) if id_parts else
             np.zeros(0, dtype=np.int64),
@@ -127,7 +160,7 @@ class DeviceTextStore:
 
     @classmethod
     def _from_frozen_native(cls, frozen, overlay: Dict[int, str],
-                            capacity: int, device
+                            capacity: int, device, doc_sharding=None
                             ) -> Optional["DeviceTextStore"]:
         """One-pass native pack from the frozen store's UTF-8 blob:
         ``utf8_decode_u16`` writes the final u16 buffer directly; non-BMP
@@ -161,6 +194,7 @@ class DeviceTextStore:
             return None
 
         obj = cls.__new__(cls)
+        obj._doc_sharding = doc_sharding
         obj.capacity = capacity
         if n:
             p99 = int(np.percentile(cp_lens, 99))
@@ -208,6 +242,7 @@ class DeviceTextStore:
         flat pack or the padded matrix as it is, with its offsets,
         lengths, dtype, maxT and overflow set."""
         obj = cls.__new__(cls)
+        obj._doc_sharding = None
         obj.capacity = int(state["capacity"])
         obj.maxT = int(state["maxT"])
         obj.dtype = np.dtype(state["dtype"]).type
@@ -280,8 +315,11 @@ class DeviceTextStore:
 
     def _set_host(self, offsets: np.ndarray, lengths: np.ndarray,
                   device) -> None:
-        self._device = (torch.device(device) if device is not None
-                        else runtime.device())
+        if self._doc_sharding is not None:
+            self._device = self._doc_sharding.home
+        else:
+            self._device = (torch.device(device) if device is not None
+                            else runtime.device())
         # host copies: planners bound candidate lengths without a pull
         self.lengths_host = np.asarray(lengths, dtype=np.int32)
         self.offsets_host = np.asarray(offsets, dtype=np.int64)
@@ -296,19 +334,61 @@ class DeviceTextStore:
         the flat pack. ``MYGRAM_TEXT_LAYOUT=flat|padded`` overrides the
         budget rule."""
         self._set_host(offsets, lengths, device)
-        flat_dev = runtime.to_device(self._signed(flat), self._device)
         rowT = self.maxT + NEEDLE_CAP
         itemsize = np.dtype(self.dtype).itemsize
         layout = os.environ.get("MYGRAM_TEXT_LAYOUT", "auto")
         fits = self.capacity * rowT * itemsize <= _PADDED_BUDGET_BYTES
-        if layout == "padded" or (layout != "flat" and fits):
-            sent = int(np.asarray(sentinel, dtype=self.dtype).view(
-                np.int16 if self.dtype == np.uint16 else np.int32))
+        padded = layout == "padded" or (layout != "flat" and fits)
+        sent = int(np.asarray(sentinel, dtype=self.dtype).view(
+            np.int16 if self.dtype == np.uint16 else np.int32))
+        if padded and self._doc_sharding is not None:
+            self._build_sharded(flat, rowT, sent)
+            return
+        flat_dev = runtime.to_device(self._signed(flat), self._device)
+        if padded:
             self.codepoints = _pad_on_device(flat_dev, self.offsets,
                                              self.lengths, rowT, sent)
             del flat_dev
         else:
             self.codepoints = flat_dev
+
+    def _build_sharded(self, flat: np.ndarray, rowT: int,
+                       sent: int) -> None:
+        """The doc-sharded padded matrix: shard s's rows built on its
+        device from the part of the flat pack its documents occupy (one
+        span: the frozen base is packed in doc-id order; an overlay
+        document packed at the end widens its shard's span, never the
+        answer)."""
+        from ..parallel.mesh import ShardedTensor
+        devices = self._doc_sharding.docs_devices
+        S = len(devices)
+        if self.capacity % S:
+            raise ValueError(f"{S} shards do not divide {self.capacity} "
+                             "rows")
+        Ds = self.capacity // S
+        self.shard_docs = Ds
+        self.shards = []
+        for s, dev in enumerate(devices):
+            lens = self.lengths_host[s * Ds:(s + 1) * Ds]
+            offs = self.offsets_host[s * Ds:(s + 1) * Ds]
+            live = lens > 0
+            a = int(offs[live].min()) if live.any() else 0
+            e = int((offs[live] + lens[live]).max()) if live.any() else 1
+            flat_s = runtime.to_device(self._signed(flat[a:max(e, a + 1)]),
+                                       dev)
+            lens_t = runtime.to_device(lens, dev)
+            self.shards.append(TextShard(
+                _pad_on_device(flat_s, runtime.to_device(
+                    np.where(live, offs - a, 0), dev), lens_t, rowT, sent),
+                lens_t, s * Ds, self.dtype, self.maxT, s))
+            del flat_s
+        self.codepoints = ShardedTensor([t.codepoints for t in self.shards],
+                                        axis=0)
+        # the whole store's lengths and offsets live on the host only
+        self.offsets = None
+        self.lengths = ShardedTensor([t.lengths for t in self.shards],
+                                     axis=0)
+        self.doc_sharded = True
 
     # the flat layout's window buckets (the padded layout reads whole rows
     # outside the fused path)
@@ -336,13 +416,25 @@ class DeviceTextStore:
             [0 < d < self.capacity and d not in self._overflow
              and d not in dirty for d in cand_ids.tolist()], dtype=bool)
 
-    def _chunks(self, ids: np.ndarray):
-        """(start, chunk, chunk tensor on the device) per device call."""
-        for pos in range(0, ids.size, _C_CHUNK):
-            chunk = ids[pos:pos + _C_CHUNK]
-            runtime.dispatches.bump()
-            yield pos, chunk, runtime.to_device(chunk.astype(np.int32),
-                                                self._device)
+    def _calls(self, ids: np.ndarray):
+        """(positions in ids, those ids, their rows in the part as a
+        tensor on its device, the part) per device call: the store itself,
+        or on a doc-sharded store the shard holding each id (its launches
+        counted for that shard while the caller runs the call)."""
+        if self.doc_sharded:
+            owner = ids // self.shard_docs
+            groups = [(part, np.flatnonzero(owner == s))
+                      for s, part in enumerate(self.shards)]
+        else:
+            groups = [(self, np.arange(ids.size))]
+        for part, positions in groups:
+            for pos in range(0, positions.size, _C_CHUNK):
+                sel = positions[pos:pos + _C_CHUNK]
+                chunk = ids[sel]
+                runtime.dispatches.bump()
+                with runtime.on_shard(part.shard):
+                    yield sel, chunk, runtime.to_device(
+                        (chunk - part.lo).astype(np.int32), part._device), part
 
     # ------------------------------------------------------------------
     def verify(self, cand_ids: np.ndarray, needles: Sequence[str],
@@ -371,13 +463,13 @@ class DeviceTextStore:
             runtime.count_route("verify_exact")
             ndl, nlens = self._pack_needles(needles)
             out = np.zeros(dev_ids.size, dtype=bool)
-            for pos, chunk, ids_t in self._chunks(dev_ids):
+            for sel, chunk, ids_t, part in self._calls(dev_ids):
                 m = substring_verify_device(
-                    self.codepoints, self.offsets, self.lengths, ids_t, ndl,
+                    part.codepoints, part.offsets, part.lengths, ids_t, ndl,
                     nlens, C=chunk.size, maxT=self._chunk_maxT(chunk),
                     Nn=len(needles), cap=needle_cap_bucket(int(nlens.max())),
                     use_range=self._needles_need_range(ndl))
-                out[pos:pos + chunk.size] = m.cpu().numpy()
+                out[sel] = m.cpu().numpy()
             mask[device_ok] = out
         return mask
 
@@ -415,13 +507,13 @@ class DeviceTextStore:
             runtime.count_route("verify_exact")
             ndl, nlens = self._pack_needles(needles)
             dev_out = np.zeros((dev_ids.size, Nn), dtype=bool)
-            for pos, chunk, ids_t in self._chunks(dev_ids):
+            for sel, chunk, ids_t, part in self._calls(dev_ids):
                 m = substring_masks_device(
-                    self.codepoints, self.offsets, self.lengths, ids_t, ndl,
+                    part.codepoints, part.offsets, part.lengths, ids_t, ndl,
                     nlens, C=chunk.size, maxT=self._chunk_maxT(chunk),
                     Nn=Nn, cap=needle_cap_bucket(int(nlens.max())),
                     use_range=self._needles_need_range(ndl))
-                dev_out[pos:pos + chunk.size] = m.cpu().numpy()
+                dev_out[sel] = m.cpu().numpy()
             out[device_ok] = dev_out
         return out
 
@@ -453,14 +545,14 @@ class DeviceTextStore:
             ndl, nlens = self._pack_needles(terms)
             d_tf = np.zeros((dev_ids.size, len(terms)), dtype=np.int32)
             d_dl = np.zeros(dev_ids.size, dtype=np.int32)
-            for pos, chunk, ids_t in self._chunks(dev_ids):
+            for sel, chunk, ids_t, part in self._calls(dev_ids):
                 t_m, l_m = count_occurrences_device(
-                    self.codepoints, self.offsets, self.lengths, ids_t, ndl,
+                    part.codepoints, part.offsets, part.lengths, ids_t, ndl,
                     nlens, C=chunk.size, maxT=self._chunk_maxT(chunk),
                     Nn=len(terms), cap=needle_cap_bucket(int(nlens.max())),
                     nonoverlap=nonoverlap)
-                d_tf[pos:pos + chunk.size] = t_m.cpu().numpy()
-                d_dl[pos:pos + chunk.size] = l_m.cpu().numpy()
+                d_tf[sel] = t_m.cpu().numpy()
+                d_dl[sel] = l_m.cpu().numpy()
             tf[device_ok] = d_tf
             dl[device_ok] = d_dl
         return tf, dl
@@ -506,9 +598,9 @@ class DeviceTextStore:
         if dev_ids.size:
             runtime.count_route("verify_exact")
             ndl, nlens = self._pack_needles(terms)
-            for _, chunk, ids_t in self._chunks(dev_ids):
+            for _, chunk, ids_t, part in self._calls(dev_ids):
                 t_ids, t_sc = bm25_topk_device(
-                    self.codepoints, self.offsets, self.lengths, ids_t, ndl,
+                    part.codepoints, part.offsets, part.lengths, ids_t, ndl,
                     nlens, idf, k1, b, avgdl, C=chunk.size,
                     maxT=self._chunk_maxT(chunk), Nn=len(terms),
                     n=min(n, chunk.size),
@@ -518,7 +610,7 @@ class DeviceTextStore:
                 t_sc = t_sc.cpu().numpy()
                 keep = t_ids >= 0
                 pairs.extend(zip(t_sc[keep].tolist(),
-                                 t_ids[keep].tolist()))
+                                 (t_ids[keep] + part.lo).tolist()))
         pairs.sort(key=lambda p: (-p[0], -p[1]))
         pairs = pairs[:n]
         ids = np.asarray([p[1] for p in pairs], dtype=np.int32)
@@ -526,6 +618,15 @@ class DeviceTextStore:
         return ids, scores
 
     def memory_usage(self) -> int:
-        """Device bytes: the pack or matrix, offsets and lengths."""
-        return int(self.codepoints.numel() * self.codepoints.element_size()
-                   + self.offsets.numel() * 8 + self.lengths.numel() * 4)
+        """Device bytes: the pack or matrix, offsets and lengths (summed
+        over the shards of a doc-sharded store)."""
+        return sum(self.shard_memory())
+
+    def shard_memory(self) -> List[int]:
+        """Device bytes of each shard (one entry for a store that is not
+        doc-sharded)."""
+        if self.doc_sharded:
+            return [int(t.codepoints.numel() * t.codepoints.element_size()
+                        + t.lengths.numel() * 4) for t in self.shards]
+        return [int(self.codepoints.numel() * self.codepoints.element_size()
+                    + self.offsets.numel() * 8 + self.lengths.numel() * 4)]

@@ -1061,3 +1061,172 @@ def test_every_kernel_on_a_second_card(kernel):
     torch.cuda.synchronize(dev)
     for a, b in zip(got, want):
         assert a.device == dev and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The doc-sharded mesh: K1, K2, K3 and K6 a shard, then the merge
+# ---------------------------------------------------------------------------
+
+def mesh_corpus(seed=5, n_docs=9000):
+    """A small-alphabet corpus (needles match often) and its BuiltIndex;
+    docs 1..120 alone hold the word "qqqq" (absent from every other
+    shard's doc range)."""
+    from mygramdb_tpu_torch.index.builder import IndexBuilder
+    rng = np.random.default_rng(seed)
+    words = ["".join(rng.choice(list("abcdefgh"), 4)) for _ in range(300)]
+    texts = {d: " ".join(rng.choice(words, int(rng.integers(3, 40))))
+             for d in range(1, n_docs)}
+    for d in range(1, 121):
+        texts[d] += " qqqq"
+    b = IndexBuilder(2, 1, True)
+    for d, x in texts.items():
+        b.add_document(d, x)
+    return words, texts, b.finalize()
+
+
+def check_mesh_against_single(devices, single_dev, seed=5):
+    """Every mesh route over ``devices`` against the single-device index on
+    ``single_dev``: AND (dense, sparse, NOT, count, both orders), trees,
+    unions, and the fused verified search (sparse and dense drivers, PK
+    and BM25 order), exactly (BM25 to 1e-5)."""
+    from mygramdb_tpu_torch.index.device_index import (DeviceIndex,
+                                                       SearchOptions)
+    from mygramdb_tpu_torch.parallel.mesh import make_mesh
+    from mygramdb_tpu_torch.storage.device_text import DeviceTextStore
+    from mygramdb_tpu_torch.utils import textproc
+    words, texts, built = mesh_corpus(seed)
+    mesh = make_mesh(devices=devices)
+    m = DeviceIndex(built, dense_df_ratio=0.2, mesh=mesh)
+    s = DeviceIndex(built, dense_df_ratio=0.2, device=single_dev)
+    mst = DeviceTextStore(texts, m.n_docs_capacity,
+                          doc_sharding=m.text_doc_sharding)
+    sst = DeviceTextStore(texts, s.n_docs_capacity, device=single_dev)
+    assert mst.doc_sharded and len(mst.shards) == len(devices)
+    for idx in (m, s):
+        idx.mark_deleted(range(1, 9000, 17))
+    rng = np.random.default_rng(seed)
+    live = np.flatnonzero(built.lengths > 0)
+    runtime.reset_launches()
+    for i in range(40):
+        tids = [int(t) for t in rng.choice(live, 1 + i % 3)]
+        nots = [int(rng.choice(live))] if i % 4 == 0 else []
+        for opts in (dict(limit=0), dict(limit=10), dict(count_only=True),
+                     dict(limit=50, descending=False)):
+            a = m.search_and(tids, nots, None, SearchOptions(**opts))
+            c = s.search_and(tids, nots, None, SearchOptions(**opts))
+            assert a[0] == c[0] and np.array_equal(a[1], c[1]), (tids, nots)
+        assert np.array_equal(m.search_or(tids + nots),
+                              s.search_or(tids + nots))
+    universe = [idx.universe_words(np.asarray(list(texts))) for idx in (m, s)]
+    sig = ("|", ("&", ("t", 0), ("!", ("t", 1))), ("t", 2))
+    qq = built.term_dict.get("qq")
+    for i in range(12):
+        leaves = [[int(t) for t in rng.choice(live, 2)] for _ in range(3)]
+        if i % 3 == 0:
+            leaves[0] = [qq]   # slices empty on every shard but the first
+        a, c = (idx.ast_words(sig, leaves, u) for idx, u in zip((m, s),
+                                                                 universe))
+        assert np.array_equal(a, c), leaves
+    verified = 0
+    for i in range(30):
+        terms = list(rng.choice(words, 1 + i % 2)) if i % 5 else ["qqqq"]
+        needles = np.zeros((2, verify_ops.NEEDLE_CAP), dtype=np.uint32)
+        nlens = np.zeros(2, dtype=np.int32)
+        for j, w in enumerate(terms):
+            needles[j, :len(w)] = [ord(x) for x in w]
+            nlens[j] = len(w)
+        tids = sorted({built.term_dict.get(g) for w in terms
+                       for g in textproc.generate_query_ngrams(w, 2, 1,
+                                                               True)})
+        for score in (False, True):
+            res = [idx.search_and_verified(
+                tids, st, needles, nlens, 100, bool(i % 2),
+                score_mode=score, idf=np.ones(2, dtype=np.float32),
+                avgdl=60.0) for idx, st in ((m, mst), (s, sst))]
+            if res[0] is None or res[1] is None:
+                continue
+            verified += 1
+            assert res[0][0] == res[1][0], terms
+            assert np.array_equal(res[0][1], res[1][1]), terms
+            np.testing.assert_allclose(res[0][2], res[1][2], rtol=1e-5)
+    assert verified > 20
+    routes = dict(runtime.routes)
+    for r in ("mesh_dense", "mesh_sparse", "mesh_fused_sparse",
+              "mesh_fused_dense", "mesh_ast", "mesh_or"):
+        assert routes[r] > 0, (r, routes)
+    return mesh
+
+
+def test_mesh_programs_on_cuda_match_single_device():
+    """Two shards on one card (cuda:0) against the single-device index on
+    the card: each shard launches K1, K2's tree and OR, K3's probe entry
+    (top-n and the fused forms) and K6."""
+    require_cuda()
+    check_mesh_against_single([torch.device("cuda:0")] * 2, "cuda")
+    for shard in (0, 1):
+        got = runtime.launches_by_shard[shard]
+        for k in ("dense_and", "ast_words", "reduce_rows", "sparse_probe",
+                  "sparse_probe.topn", "tf_rows_padded"):
+            assert got.get(k, 0) > 0, (shard, k, got)
+    assert set(runtime.launches_by_device) == {"cuda:0"}
+
+
+def test_mesh_on_two_cards():
+    """Shards on cuda:0 and cuda:1 (each launch on its shard's card, the
+    merge on cuda:0) against the single-device index on the CPU."""
+    dev = second_card()
+    check_mesh_against_single([torch.device("cuda:0"), dev], "cpu", seed=6)
+    for card in ("cuda:0", "cuda:1"):
+        got = runtime.launches_by_device[card]
+        for k in ("dense_and", "ast_words", "sparse_probe",
+                  "tf_rows_padded"):
+            assert got.get(k, 0) > 0, (card, k, got)
+
+
+def test_mesh_shard_empty_slice_gives_zeros_on_cuda():
+    """A term absent from a shard's doc range contributes zeros there (not
+    the padding identity) in K2's tree and K3's probe, on the card."""
+    require_cuda()
+    from mygramdb_tpu_torch.index.device_index import (DeviceIndex,
+                                                       SearchOptions)
+    from mygramdb_tpu_torch.parallel.mesh import make_mesh
+    _, texts, built = mesh_corpus(7)
+    m = DeviceIndex(built, dense_df_ratio=0.2,
+                    mesh=make_mesh(devices=[torch.device("cuda:0")] * 2))
+    qq, ab = built.term_dict.get("qq"), built.term_dict.get("ab")
+    assert m.dense_row[qq] < 0 and m.lengths_sh[1, qq] == 0
+    want = sorted(d for d in range(1, 121) if "ab" in texts[d])
+    w = m.ast_words(("&", ("t", 0), ("t", 1)), [[qq], [ab]], m._ones_words)
+    bits = np.unpackbits(w.view(np.uint8), bitorder="little")
+    assert np.flatnonzero(bits).tolist() == want
+    total, ids = m.search_and([qq, ab], [], None, SearchOptions(limit=0))
+    assert total == len(want) and ids.tolist() == want
+
+
+def test_sharded_query_engine_on_cuda():
+    """``ShardedQueryEngine`` on two shards of cuda:0: one delta-apply,
+    then a batched query (K1 a shard, the merge), against numpy."""
+    require_cuda()
+    from mygramdb_tpu_torch.parallel.mesh import ShardedQueryEngine, make_mesh
+    rng = np.random.default_rng(9)
+    W = 2048
+    bm = np.zeros((16, W), dtype=np.uint32)
+    bm[:14] = (rng.integers(0, 2 ** 32, size=(14, W), dtype=np.uint32)
+               & rng.integers(0, 2 ** 32, size=(14, W), dtype=np.uint32))
+    bm[14] = 0xFFFFFFFF
+    eng = ShardedQueryEngine(make_mesh(devices=[torch.device("cuda:0")] * 2),
+                             bm, np.zeros(W, dtype=np.uint32), topk=16)
+    tr = np.asarray([0, 0, 1, 5], dtype=np.int32)
+    di = np.asarray([33, 34, 40000, W * 32 - 1], dtype=np.int32)
+    eng.apply_delta(tr, di)
+    np.bitwise_or.at(bm, (tr, di >> 5), np.left_shift(
+        np.uint32(1), (di & 31).astype(np.uint32)))
+    rows = np.full((6, 3), 14, dtype=np.int32)
+    rows[:, 0] = np.arange(6)
+    counts, ids = eng.search(rows)
+    for b in range(6):
+        words = np.bitwise_and.reduce(bm[rows[b]], axis=0)
+        docs = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                            bitorder="little"))
+        assert int(counts[b]) == docs.size
+        assert ids[b][ids[b] >= 0].tolist() == docs[::-1][:16].tolist()

@@ -161,8 +161,7 @@ def test_filter_by_ngrams_and_memory(pair):
 
 def test_paths_not_ported_raise(pair):
     built, _, tdev = pair
-    for call in (lambda: TD.DeviceIndex(built, mesh_shards=2),
-                 lambda: tdev.plan_positional(None, []),
+    for call in (lambda: tdev.plan_positional(None, []),
                  lambda: tdev.search_verified_positional([1], None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -171,6 +170,21 @@ def test_paths_not_ported_raise(pair):
     assert tdev.search_by_threshold([1], 1).dtype == np.int32
     assert tdev.ast_words(("t", 0), [[1]], tdev._ones_words).dtype \
         == np.uint32
+
+
+def test_mesh_shards_build_a_sharded_index(pair):
+    """``mesh_shards`` > 1 (ROADMAP item 13, ported) doc-shards the index
+    and answers as the single-device index does."""
+    built, _, tdev = pair
+    mesh = TD.DeviceIndex(built, dense_df_ratio=0.05, mesh_shards=2)
+    assert mesh.mesh.shape["docs"] == 2 and mesh.postings is None
+    assert mesh.text_doc_sharding is mesh.mesh
+    for tids, nots in random_queries(built, tdev, 20, seed=8):
+        for opts in OPTS:
+            o = TD.SearchOptions(**opts)
+            t1, i1 = tdev.search_and(tids, nots, opts=o)
+            t2, i2 = mesh.search_and(tids, nots, opts=o)
+            assert t1 == t2 and np.array_equal(i1, i2), (tids, nots, opts)
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch):

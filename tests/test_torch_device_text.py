@@ -127,6 +127,34 @@ def test_store_queries_equal_jax(stores):
 
 
 def test_doc_sharded_build_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdt.DeviceTextStore.from_doc_store(object(), 64, device="cpu",
-                                           doc_sharding=object())
+    """The doc-sharded build (ROADMAP item 13; ported, the name is the
+    placeholder's) over a mesh of 4 CPU shards, from texts and from a
+    frozen document store with overlay rows: shard s holds exactly rows
+    [s * Ds, (s + 1) * Ds) of the whole store's padded matrix, and the
+    flat layout stays whole."""
+    from mygramdb_tpu.storage.document_store import DocumentStore
+    from mygramdb_tpu.storage.frozen_docs import FrozenDocBuilder
+    from mygramdb_tpu_torch.parallel.mesh import make_mesh
+    import torch
+    mesh = make_mesh(devices=[torch.device("cpu")] * 4)
+    texts = corpus(seed=7)
+    fb = FrozenDocBuilder(store_texts=True)
+    fb.append([str(d) for d in sorted(texts)],
+              [texts[d] for d in sorted(texts)])
+    ds = DocumentStore.from_frozen(fb, True, True, str(len(texts)))
+    ds.update_document(5, text="patched 大阪 quick")
+    ds.add_document("1500", None, "a new quick row")
+    for make in (lambda **kw: tdt.DeviceTextStore(texts, 2048, **kw),
+                 lambda **kw: tdt.DeviceTextStore.from_doc_store(ds, 2048,
+                                                                 **kw)):
+        whole = make(device="cpu")
+        sharded = make(doc_sharding=mesh)
+        assert sharded.doc_sharded and len(sharded.shards) == 4
+        assert [t.lo for t in sharded.shards] == [0, 512, 1024, 1536]
+        assert torch.equal(sharded.codepoints.cpu(), whole.codepoints)
+        assert torch.equal(sharded.lengths.cpu(), whole.lengths)
+        assert sharded.memory_usage() == sum(sharded.shard_memory())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MYGRAM_TEXT_LAYOUT", "flat")
+        flat = tdt.DeviceTextStore(texts, 2048, doc_sharding=mesh)
+    assert not flat.doc_sharded and flat.codepoints.dim() == 1

@@ -3,8 +3,10 @@
 A subprocess blocks both (``sys.modules[name] = None`` makes any import of
 them fail), imports every module of ``mygramdb_tpu_torch``, then loads a
 small table with ``memory.verify_text: all`` and serves SEARCH, COUNT,
-``SORT _score``, boolean-expression and ``FUZZY`` queries on the CPU. A source scan shows that no file of the
-port has an import naming the JAX package.
+``SORT _score``, boolean-expression and ``FUZZY`` queries on the CPU, then
+the same table at ``device.mesh_shards: 2`` (``parallel.mesh``), which
+must answer the same. A source scan shows that no file of the port has an
+import naming the JAX package.
 """
 
 import ast
@@ -31,22 +33,30 @@ from mygramdb_tpu_torch.catalog import TableCatalog
 from mygramdb_tpu_torch.config import load_config_from_dict
 from mygramdb_tpu_torch.server.core import ServerCore
 from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
-cfg = load_config_from_dict({
+CFG = {
     "tables": [{"name": "articles", "text_source": {"column": "content"},
                 "filters": [{"name": "status", "type": "int",
                              "bitmap_index": True}]}],
     "cache": {"enabled": False}, "memory": {"verify_text": "all"},
     "api": {"tcp": {"bind": "127.0.0.1", "port": 0}},
-    "network": {"allow_cidrs": ["127.0.0.0/8"]}})
-cat = TableCatalog(cfg)
-ctx = cat.resolve("articles")
-bulk = ctx.begin_bulk_load()
+    "network": {"allow_cidrs": ["127.0.0.0/8"]}}
 gen = CorpusGenerator(1200, seed=4, vocab_size=4000)
 texts = [t for b in gen.batches(400) for _, t in b]
-for batch in gen.batches(400):
-    bulk.add_batch([(str(i), t, {"status": i % 3}) for i, t in batch])
-bulk.finish()
-core = ServerCore(cfg, cat)
+
+
+def serve(cfg_dict):
+    cfg = load_config_from_dict(cfg_dict)
+    cat = TableCatalog(cfg)
+    ctx = cat.resolve("articles")
+    bulk = ctx.begin_bulk_load()
+    for batch in gen.batches(400):
+        bulk.add_batch([(str(i), t, {"status": i % 3}) for i, t in batch])
+    bulk.finish()
+    return ctx, ServerCore(cfg, cat)
+
+
+ctx, core = serve(CFG)
+mctx, mcore = serve(dict(CFG, device={"mesh_shards": 2}))
 ja = [t[5:8] for t in texts if not t.isascii()][:20]
 lines = [f"SEARCH articles {w} LIMIT 10" for w in gen.vocab[:20]]
 lines += [f"SEARCH articles {t} SORT _score DESC LIMIT 5" for t in ja]
@@ -55,13 +65,16 @@ lines += [f"SEARCH articles (({a} OR {b}) AND NOT {c}) LIMIT 10"
           for a, b, c in zip(gen.vocab[:8], gen.vocab[8:16], gen.vocab[16:24])]
 lines += [f"SEARCH articles {w} FUZZY 1 LIMIT 10" for w in gen.vocab[30:36]]
 out = [core.handle_line(x) for x in lines]
+mesh_out = [mcore.handle_line(x) for x in lines]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "mygramdb_tpu" or m.startswith("mygramdb_tpu.")))
 print(json.dumps({"modules": len(names), "loaded": loaded,
                   "covered": [n for n in names if n.endswith((
-                      ".ops.threshold_ops", ".tools.profile_gather"))],
-                  "responses": out,
+                      ".ops.threshold_ops", ".parallel.mesh",
+                      ".tools.profile_gather"))],
+                  "responses": out, "mesh_responses": mesh_out,
+                  "mesh_shards": mctx.index.device.mesh.shape["docs"],
                   "text_store": type(ctx.device_text).__module__}))
 """
 
@@ -76,7 +89,10 @@ def test_port_imports_and_serves_without_jax_package():
     assert out["loaded"] == []
     assert out["modules"] > 70
     assert out["covered"] == ["mygramdb_tpu_torch.ops.threshold_ops",
+                              "mygramdb_tpu_torch.parallel.mesh",
                               "mygramdb_tpu_torch.tools.profile_gather"]
+    assert out["mesh_shards"] == 2
+    assert out["mesh_responses"] == out["responses"]
     assert out["text_store"] == "mygramdb_tpu_torch.storage.device_text"
     assert all(r.startswith("OK") for r in out["responses"]), out
     assert sum(r not in ("OK RESULTS 0", "OK COUNT 0")

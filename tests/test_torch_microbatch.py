@@ -160,3 +160,89 @@ def test_fused_verify_batches_match_unbatched(indexes):
                 np.testing.assert_allclose(np.asarray(g[2], np.float64),
                                            np.asarray(want[2], np.float64),
                                            rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def mesh_indexes(indexes):
+    """The same corpus doc-sharded over 8 CPU shards, with a batcher."""
+    built = indexes[0]
+    mesh = TD.DeviceIndex(built, dense_df_ratio=0.05, mesh_shards=8)
+    mesh.batcher = TM.MicroBatcher(mesh, max_batch=16, window_us=20000)
+    return built, mesh, indexes[2]
+
+
+@pytest.mark.parametrize("opts", [dict(limit=10), dict(limit=100,
+                                                       descending=False)],
+                         ids=["limit10", "asc100"])
+def test_mesh_dense_batches_match_unbatched(mesh_indexes, opts):
+    """On a mesh the batcher's dense program runs K1 a shard and merges:
+    batches form, and each answer equals the single-device one."""
+    from mygramdb_tpu_torch.ops import runtime
+    built, mesh, plain = mesh_indexes
+    qs = [t for t, _ in random_queries(built, plain, 40, seed=33)
+          if all(plain.dense_row[x] >= 0 for x in t)]
+    assert len(qs) >= 6
+    b = mesh.batcher
+    before = (b.batches_executed, b.queries_batched)
+    runtime.reset_launches()
+    got = run_concurrently(
+        lambda i: mesh.search_and(qs[i], [], None, TD.SearchOptions(**opts)),
+        len(qs))
+    assert 0 < b.batches_executed - before[0] < b.queries_batched - before[1]
+    assert runtime.routes["mesh_dense"] == len(qs)
+    for tids, (total, ids) in zip(qs, got):
+        want = plain.search_and(tids, [], None, TD.SearchOptions(**opts))
+        assert total == want[0] and np.array_equal(ids, want[1]), tids
+
+
+def test_mesh_fused_verify_batches_match_unbatched(mesh_indexes):
+    """Dense-driver verified searches on a mesh share the batcher's fused
+    program (K1, then the verify over each shard's own text rows, then
+    the merge); each answer equals the single-device one."""
+    from mygramdb_tpu.utils.corpusgen import CorpusGenerator
+    from mygramdb_tpu.utils.textproc import generate_query_ngrams
+    from mygramdb_tpu_torch.ops import runtime
+    from mygramdb_tpu_torch.storage.device_text import DeviceTextStore
+    built, mesh, plain = mesh_indexes
+    gen = CorpusGenerator(3000, seed=12, vocab_size=20_000)
+    texts = {i: t.lower() for b in gen.batches(1000) for i, t in b}
+    st8 = DeviceTextStore(texts, mesh.n_docs_capacity,
+                          doc_sharding=mesh.text_doc_sharding)
+    st1 = DeviceTextStore(texts, plain.n_docs_capacity, device="cpu")
+    assert st8.doc_sharded
+    qs = []
+    for i, w in enumerate(gen.vocab[:400]):
+        tids = [built.term_dict.get(g) for g in
+                generate_query_ngrams(w, 2, 1, True, kanji_extra=2)]
+        if len(w) < 3 or None in tids or \
+                any(plain.dense_row[t] < 0 for t in tids):
+            continue
+        ndl, nl = DeviceTextStore._pack_needles([w, ""])
+        qs.append((sorted(set(tids)), ndl, nl, bool(i % 2)))
+    qs = qs[:16]
+    assert len(qs) >= 8
+    idf = np.asarray([1.5, 0.0], dtype=np.float32)
+
+    def ask(idx, st, q):
+        tids, ndl, nl, score = q
+        return idx.search_and_verified(tids, st, ndl, nl, 32, True,
+                                       score_mode=score, idf=idf,
+                                       avgdl=40.0)
+
+    b = mesh.batcher
+    before = (b.batches_executed, b.queries_batched)
+    runtime.reset_launches()
+    got = run_concurrently(lambda i: ask(mesh, st8, qs[i]), len(qs))
+    assert 0 < b.batches_executed - before[0] < b.queries_batched - before[1]
+    assert runtime.routes["mesh_fused_dense"] == len(qs)
+    for q, g in zip(qs, got):
+        want = ask(plain, st1, q)
+        assert (g is None) == (want is None), q[0]
+        if g is None:
+            continue
+        assert g[0] == want[0] and g[3] == want[3], q[0]
+        assert np.array_equal(g[1], want[1]), q[0]
+        if q[3]:
+            np.testing.assert_allclose(np.asarray(g[2], np.float64),
+                                       np.asarray(want[2], np.float64),
+                                       rtol=1e-5)

@@ -534,3 +534,99 @@ def test_port_slice_runs_without_jax():
     assert all(r.startswith("OK") for r in out["responses"]), out
     assert sum(r not in ("OK RESULTS 0", "OK COUNT 0")
                for r in out["responses"]) > 40
+
+
+@pytest.fixture(scope="module")
+def mesh_slices(torch_cpu, tmp_path_factory, eight_cpu_devices):
+    """The verified table with synonyms of ``kinds_slices`` at
+    ``device.mesh_shards: 8``: the JAX package on its 8 virtual CPU
+    devices, the port on 8 CPU shards, and the port at 1 shard."""
+    gen = CorpusGenerator(N_DOCS, seed=80, vocab_size=20_000)
+    words = [w for w in gen.vocab[:3000] if len(w) >= 4]
+    ja = [t for b in gen.batches(1000) for _, t in b if not t.isascii()]
+    en_group = [words[3], words[40], words[700]]
+    cjk_group = [ja[0][4:6], ja[1][10:13], words[5]]
+    path = tmp_path_factory.mktemp("syn") / "synonyms.tsv"
+    path.write_text("\t".join(en_group) + "\n" + "\t".join(cjk_group) + "\n",
+                    encoding="utf-8")
+    table = dict(VERIFIED_CFG["tables"][0],
+                 synonyms={"enable": True, "file": str(path)})
+    one = dict(VERIFIED_CFG, tables=[table])
+    eight = dict(one, device=dict(one["device"], mesh_shards=8))
+    j8 = load(JCatalog, gen, eight)
+    t8 = load(TCatalog, gen, eight)
+    t1 = load(TCatalog, gen, one)
+    assert j8[2].index.device.mesh is not None
+    assert t8[2].index.device.mesh.shape["docs"] == 8
+    assert t8[2].device_text.doc_sharded
+    return gen, words, ja, en_group, cjk_group, j8, t8, t1
+
+
+def test_mesh8_tcp_responses_are_byte_identical(mesh_slices):
+    """At ``device.mesh_shards: 8`` every response (dense, sparse, NOT,
+    FILTER, AND, SORT _score, boolean, synonym, FUZZY, then the same after
+    deletes) is byte-identical to the JAX package's at 8 shards and to the
+    port's at 1, and the port served through the mesh routes."""
+    gen, words, ja, en_group, cjk_group, j8, t8, t1 = mesh_slices
+    lines = (query_lines(gen, t8[2], 80, seed=21)
+             + verified_lines(gen, 80, seed=23)
+             + kinds_lines(words, ja, en_group, cjk_group, seed=25))
+
+    async def ask(port, batch):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        out = []
+        for line in batch:
+            writer.write(line.encode() + b"\r\n")
+            await writer.drain()
+            out.append(await asyncio.wait_for(reader.readline(), 60))
+        writer.close()
+        return out
+
+    async def main(batch):
+        servers = [JTcp(JCore(j8[0], j8[1]), j8[0]),
+                   TTcp(TCore(t8[0], t8[1]), t8[0]),
+                   TTcp(TCore(t1[0], t1[1]), t1[0])]
+        for s in servers:
+            await s.start()
+        try:
+            return await asyncio.gather(*[ask(s.port, batch)
+                                          for s in servers])
+        finally:
+            for s in servers:
+                await s.stop()
+
+    runtime.reset_launches()
+    jout, tout, oneout = asyncio.run(main(lines))
+    for line, j, t, o in zip(lines, jout, tout, oneout):
+        assert t == j, line
+        assert t == o, line
+    assert all(r.startswith(b"OK") for r in tout)
+    assert sum(r not in (b"OK RESULTS 0\r\n", b"OK COUNT 0\r\n")
+               for r in tout) > len(lines) // 2
+    routes = dict(runtime.routes)
+    for r in ("mesh_dense", "mesh_sparse", "mesh_fused_sparse",
+              "mesh_fused_dense", "mesh_ast", "threshold_host"):
+        assert routes[r] > 0, (r, routes)
+    # the deletes reach every shard of both packages
+    gone = [str(pk) for pk in range(3, N_DOCS, 7)]
+    for ctx in (j8[2], t8[2], t1[2]):
+        for pk in gone:
+            ctx.remove_row(pk)
+    jout, tout, oneout = asyncio.run(main(lines[:160]))
+    for line, j, t, o in zip(lines, jout, tout, oneout):
+        assert t == j == o, line
+
+
+def test_mesh_search_or_matches(mesh_slices):
+    """``search_or`` on the mesh (K2's OR a shard) over dense and sparse
+    terms equals the port's at 1 shard and the JAX package's at 8."""
+    gen, words, ja, en_group, cjk_group, j8, t8, t1 = mesh_slices
+    d8, d1, dj = (c[2].index.device for c in (t8, t1, j8))
+    dense = [int(t) for t in np.flatnonzero(d8.dense_row >= 0)][:6]
+    sparse = [int(t) for t in np.flatnonzero((d8.dense_row < 0)
+                                             & (d8.lengths > 3))][:6]
+    runtime.reset_launches()
+    for tids in (dense[:2], dense[2:5] + sparse[:2], sparse[2:5]):
+        assert d8.search_or(tids).tolist() == d1.search_or(tids).tolist() \
+            == dj.search_or(tids).tolist()
+    assert runtime.routes["mesh_or"] == 3
