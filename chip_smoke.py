@@ -42,7 +42,16 @@ Phases, each printing one JSON line with its seconds:
    Python substring checks per tree or synonym group, and a numpy
    ``bincount`` with a Python edit distance; a direct ``search_or`` check
    (K2's OR form); then rows are removed and the affected queries asked
-   again.
+   again. The serve runs with ``device.positional_verify: true``: before
+   its queries the positional engine's bytes, its refusals by bucket and
+   its program alone (device ms and kernels a batch at B = 1-64, the
+   occurrence bytes bound); after the SEARCH/COUNT mix, and again after
+   the removals, 240 covered single terms in six forms (pages both ways,
+   count, BM25, gram-AND probes, the status filter row) from 64 threads
+   through ``search_verified_positional`` (the micro-batcher's
+   positional program, K3 gathers), each answer held against substring
+   containment over the stored texts and BM25 over every start
+   position.
 5. flat verified serve: the same at FLAT_DOCS documents with
    ``MYGRAM_TEXT_LAYOUT=flat`` (K4 and K5).
 6. plain serve: PR 1's unverified SEARCH/COUNT serve at PLAIN_DOCS
@@ -1358,11 +1367,13 @@ def synonym_groups(gen, seed: int):
 
 
 def write_inputs(docs: int, seed: int, verified: bool,
-                 synonyms: bool = False, mesh_shards: int = 1):
+                 synonyms: bool = False, mesh_shards: int = 1,
+                 positional: bool = False):
     """Seed JSONL of the synthetic corpus (written once a run for each
     docs and seed: the sharded serve reads the verified serve's) + a JSON
     config (with a synonym file when asked, ``device.mesh_shards`` when
-    above 1); -> (generator, paths, status column, synonym groups)."""
+    above 1, ``device.positional_verify`` with positional); ->
+    (generator, paths, status column, synonym groups)."""
     import numpy as np
     from mygramdb_tpu_torch.utils.corpusgen import CorpusGenerator
     work = os.path.join(WORK, f"{docs}_{int(verified)}_{mesh_shards}")
@@ -1391,6 +1402,8 @@ def write_inputs(docs: int, seed: int, verified: bool,
         cfg["memory"] = {"verify_text": "all"}
     if mesh_shards > 1:
         cfg["device"] = {"mesh_shards": mesh_shards}
+    if positional:
+        cfg["device"] = {"positional_verify": True}
     groups = synonym_groups(gen, seed) if synonyms else []
     if groups:
         syn_path = os.path.join(work, "synonyms.tsv")
@@ -1995,6 +2008,306 @@ def search_or_check(ctx, ref, words) -> dict:
 # The mesh: each sharded program against the single-device program
 # ---------------------------------------------------------------------------
 
+POSITIONAL_TERMS = 240  # planned terms of the positional phase (>= 200)
+# the forms each planned term is asked in: page, order, count, BM25,
+# gram-AND probes, the status filter row
+POSITIONAL_FORMS = {
+    "desc": dict(limit=100, descending=True),
+    "asc": dict(limit=100, descending=False),
+    "count": dict(limit=0, descending=True),
+    "score": dict(limit=100, descending=True, score_mode=True),
+    "probes": dict(limit=100, descending=True, force_probes=True),
+    "filter": dict(limit=100, descending=False, filter=True),
+}
+POSITIONAL_PROFILE_B = (1, 2, 4, 8, 16, 32, 64)
+
+
+def positional_refusal(dev, to) -> str:
+    """Which bucket of ``plan_positional`` a refused plan passed (the JAX
+    package's buckets, read from ``index/positional.py``)."""
+    from mygramdb_tpu_torch.index import positional as P
+    pp = dev.positional
+    dfs = [int(dev.lengths[t]) for t, _ in to]
+    if min(dfs) == 0:
+        return "empty_gram"
+    di = dfs.index(min(dfs))
+    probes = [t for j, (t, _) in enumerate(to) if j != di]
+    for name, value, buckets in (
+            ("C", dfs[di], P.C_BUCKETS),
+            ("Co", int(pp.occ_len[to[di][0]]), P.CO_BUCKETS),
+            ("G", len(probes), P.G_BUCKETS),
+            ("C2", max([1] + [dfs[j] for j in range(len(to)) if j != di]),
+             P.C2_BUCKETS),
+            ("Co2", max([1] + [int(pp.occ_len[t]) for t in probes]),
+             P.CO2_BUCKETS)):
+        if P._bucket(max(value, 1), buckets) is None:
+            return name
+    return "overflow" if pp.overflow else "other"
+
+
+def positional_plans(gen, ctx, texts, seed: int):
+    """Covered single terms drawn from the corpus (CJK substrings of 2-4
+    characters cut from the stored texts, EN words), each planned with
+    ``plan_positional`` until POSITIONAL_TERMS plans are made. -> (plans
+    [(term, plan, tid_offsets)], refusals by bucket, terms drawn)."""
+    import numpy as np
+    from mygramdb_tpu_torch.utils import textproc
+    dev, t = ctx.index.device, ctx.table_cfg
+    rng = np.random.default_rng(seed + 7)
+    ja = [d for d in rng.integers(1, len(texts), 20_000).tolist()
+          if texts[d] and not texts[d].isascii()]
+    cands = []
+    for i, d in enumerate(ja):
+        L = 2 + i % 3
+        if len(texts[d]) > L:
+            p = int(rng.integers(0, len(texts[d]) - L))
+            cands.append(texts[d][p:p + L])
+    words = [w for w in gen.vocab[300:20_000] if len(w) >= 3
+             and w not in KEYWORDS]
+    en = [words[i] for i in rng.permutation(len(words))]
+    # CJK and EN alternate, so both kinds are planned
+    pool = [x for pair in zip(cands, en) for x in pair]
+    plans, refused, seen, drawn = [], {}, set(), 0
+    for term in pool:
+        if len(plans) >= POSITIONAL_TERMS:
+            break
+        norm = ctx.normalize(term)
+        if norm in seen or not norm or " " in norm:
+            continue
+        seen.add(norm)
+        drawn += 1
+        pairs, covered = textproc.query_gram_offsets(
+            norm, t.ngram_size, t.kanji_ngram_size, t.cross_boundary_ngrams,
+            kanji_extra=ctx.kanji_extra_effective)
+        to = [(ctx.index.term_dict.get(g), o) for g, o in pairs]
+        if not covered or not pairs:
+            refused["uncovered"] = refused.get("uncovered", 0) + 1
+            continue
+        if any(tid is None for tid, _ in to):
+            refused["missing_gram"] = refused.get("missing_gram", 0) + 1
+            continue
+        plan = dev.plan_positional(to)
+        if plan is None:
+            why = positional_refusal(dev, to)
+            refused[why] = refused.get(why, 0) + 1
+            continue
+        plans.append((norm, plan, to))
+    check(len(plans) >= 200, f"only {len(plans)} positional plans of "
+          f"{drawn} terms: refused {refused}")
+    return plans, refused, drawn
+
+
+def starts_of(text: str, term: str) -> int:
+    """Start positions of term in text, overlapping ones too."""
+    n, i = 0, text.find(term)
+    while i >= 0:
+        n += 1
+        i = text.find(term, i + 1)
+    return n
+
+
+def positional_expect(ref, term: str, plan: dict, to, form: str,
+                      idf: float, avgdl: float, removed, cache: dict):
+    """The reference answer of one positional query: substring
+    containment over the stored normalized texts (candidates from the
+    host CSR), tombstoned rows removed, the status filter, BM25 with every
+    start position (overlapping ones too) as TF. cache holds each term's
+    matching ids. -> (count, ids in page order, scores by id or None,
+    pre)."""
+    import numpy as np
+    f = POSITIONAL_FORMS[form]
+    if term not in cache:
+        cache[term] = np.asarray(
+            [d for d in ref.term_ids(term).tolist()
+             if term in ref.texts[d] and d not in removed], dtype=np.int64)
+    ids = cache[term]
+    if f.get("filter"):
+        ids = ids[ref.status[ids] == 1]
+    if f.get("force_probes"):
+        live = reduce(np.intersect1d, [ref.built.postings_of(t)
+                                       for t, _ in to])
+        pre = int(np.isin(live, list(removed), invert=True).sum())
+    else:
+        pre = plan["d_len"]  # the driver's doc count
+    scores = None
+    if f.get("score_mode"):
+        tf = np.asarray([starts_of(ref.texts[d], term)
+                         for d in ids.tolist()], dtype=np.float64)
+        norm = K1_BM25 * (1.0 - B_BM25 + B_BM25 * ref.doc_len[ids] / avgdl)
+        sc = idf * tf * (K1_BM25 + 1.0) / (tf + norm)
+        scores = dict(zip(ids.tolist(), sc.tolist()))
+        order = np.lexsort((-ids, -sc))
+        page = ids[order]
+    else:
+        page = ids[::-1] if f["descending"] else ids
+    return int(ids.size), page, scores, pre
+
+
+def positional_mismatch(want, got, n: int):
+    """None when a positional answer is right: count, pre and the page
+    (n ids) exact; a score page ranked within the serve's 1e-5 relative
+    rule, each returned score within 1e-5 of the reference's."""
+    import numpy as np
+    count, page, scores, pre = want
+    total, ids, sc, gpre = got
+    if (total, gpre) != (count, pre):
+        return f"count/pre {total}/{gpre}, want {count}/{pre}"
+    ids = [int(x) for x in ids[:n]]
+    live = [d for d in ids if d >= 0]
+    if len(live) != min(n, count) or any(d >= 0 for d in ids[len(live):]):
+        return f"a page of {min(n, count)}, got {ids[:12]}"
+    if scores is None:
+        want_ids = page[:n].tolist()
+        return None if live == want_ids else f"ids {live[:8]} want " \
+            f"{want_ids[:8]}"
+    want_sc = np.asarray([scores[d] for d in page[:n].tolist()])
+    if len(set(live)) != len(live) or any(d not in scores for d in live):
+        return "a page of verified ids"
+    got_ref = np.asarray([scores[d] for d in live])
+    tol = 1e-5 * np.maximum(np.abs(want_sc), 1e-9)
+    if (np.abs(got_ref - want_sc) > tol).any() or \
+            (np.abs(np.asarray(sc[:len(live)]) - got_ref) > tol).any():
+        return f"scores {list(zip(live, sc))[:5]} want " \
+            f"{list(zip(page[:5].tolist(), want_sc[:5]))}"
+    return None
+
+
+def positional_batch_profile(dev, plans) -> dict:
+    """The positional program alone (``positional_verify_batch``, no
+    batcher) on the commonest bucket tuple of the planned terms, at each
+    B of POSITIONAL_PROFILE_B: device ms and kernels a batch
+    (torch.profiler), event ms, K3 launches a batch and the bytes bound
+    (the occurrence doc ids and positions the batch reads, 8 B an
+    occurrence, over the memory rate). Run before the serve's queries:
+    after a serve torch.profiler records few launches."""
+    import numpy as np
+    from mygramdb_tpu_torch.ops import runtime
+    from mygramdb_tpu_torch.ops.positional_ops import positional_verify_batch
+    pp = dev.positional
+    keys = {}
+    for _, plan, _ in plans:
+        k = tuple(plan[x] for x in ("C", "Co", "C2", "Co2", "G"))
+        keys.setdefault(k, []).append(plan)
+    key, group = max(keys.items(), key=lambda kv: len(kv[1]))
+    out = {"bucket": dict(zip(("C", "Co", "C2", "Co2", "G"), key)),
+           "plans_in_bucket": len(group)}
+    for B in POSITIONAL_PROFILE_B:
+        batch = [group[i % len(group)] for i in range(B)]
+        n = min(100, key[1])
+
+        def call():
+            positional_verify_batch(
+                dev.postings, pp.occ_doc, pp.occ_pos, dev.deleted,
+                pp.doc_len, batch, n, dev.n_words, True)
+        before = runtime.launch_forms["slice_gather.positional"]
+        call()
+        launches = runtime.launch_forms["slice_gather.positional"] - before
+        occ = sum(p["d_olen"] + sum(p["p_olen"]) for p in batch)
+        out[f"B={B}"] = {"k3_launches": launches, "occurrences": occ,
+                         **bound(8 * occ, 0)}
+        if dev._device.type == "cuda":  # a CPU rehearsal times nothing
+            prof = device_profile(call)
+            out[f"B={B}"].update(device_ms=prof["device_ms"],
+                                 kernels=prof["kernels"], ms=cuda_ms(call))
+    return out
+
+
+def positional_phase(ctx, ref, plans, removed, conns: int = 64) -> dict:
+    """Every planned term in every POSITIONAL_FORMS form from ``conns``
+    threads through ``DeviceIndex.search_verified_positional`` (so the
+    micro-batcher runs ``_execute_positional``), each answer held against
+    ``positional_expect``. -> what was checked and measured."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from mygramdb_tpu_torch.ops import positional_ops, runtime
+    dev = ctx.index.device
+    batcher = dev.batcher
+    check(batcher is not None, "the index has no micro-batcher")
+    n_docs = ref.doc_len.size - 1
+    live = np.ones(n_docs + 1, dtype=bool)
+    live[0] = False
+    live[list(removed)] = False
+    avgdl = float(ref.doc_len[live].mean())
+    row = ctx.filter_index.eq_bitmap_device("status", 1, dev.n_words,
+                                            dev._device)
+    check(row is not None, "no device row for status = 1")
+    jobs = [(term, plan, to, form) for term, plan, to in plans
+            for form in POSITIONAL_FORMS]
+    sizes = []  # the batch sizes the batcher ran
+    run = positional_ops.positional_verify_batch
+
+    def counted(*a, **kw):
+        sizes.append(len(a[5]))
+        return run(*a, **kw)
+
+    def ask(job):
+        term, plan, to, form = job
+        f = POSITIONAL_FORMS[form]
+        idf = math.log(1.0 + n_docs / max(plan["d_len"], 1))
+        got = dev.search_verified_positional(
+            plan, f["limit"], f["descending"],
+            score_mode=f.get("score_mode", False), idf=idf, k1=K1_BM25,
+            b=B_BM25, avgdl=avgdl,
+            force_probes=f.get("force_probes", False),
+            extra_words=(row,) if f.get("filter") else ())
+        return idf, got
+
+    f0 = runtime.launch_forms["slice_gather.positional"]
+    b0 = (batcher.batches_executed, batcher.queries_batched)
+    positional_ops.positional_verify_batch = counted
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(conns) as ex:
+            answers = list(ex.map(ask, jobs))
+    finally:
+        positional_ops.positional_verify_batch = run
+    wall = time.perf_counter() - t0
+    batches = batcher.batches_executed - b0[0]
+    launches = runtime.launch_forms["slice_gather.positional"] - f0
+    t0 = time.time()
+    bad, nonzero, cache = [], 0, {}
+    for (term, plan, to, form), (idf, got) in zip(jobs, answers):
+        n = min(POSITIONAL_FORMS[form]["limit"], plan["Co"])
+        want = positional_expect(ref, term, plan, to, form, idf, avgdl,
+                                 removed, cache)
+        nonzero += want[0] > 0
+        why = positional_mismatch(want, got, n)
+        if why is not None:
+            bad.append((term, form, why[:200]))
+    check(not bad, f"{len(bad)} positional answers differ from the "
+                   f"reference, first: {bad[:5]}")
+    check(nonzero > len(jobs) // 2, "too few positional queries matched")
+    by_size = {}
+    for s in sizes:
+        by_size[s] = by_size.get(s, 0) + 1
+    return {"queries": len(jobs), "terms": len(plans), "mismatches": 0,
+            "nonzero_answers": nonzero, "removed": len(removed),
+            "qps": len(jobs) / wall, "batches": batches,
+            "avg_batch": (batcher.queries_batched - b0[1]) / max(batches, 1),
+            "most_served_batch": max(by_size, key=by_size.get),
+            "batch_sizes": dict(sorted(by_size.items())),
+            "k3_launches": launches,
+            "k3_launches_a_batch": launches / max(batches, 1),
+            "reference_s": time.time() - t0}
+
+
+def positional_bytes(dev) -> dict:
+    """The positional index's device bytes, its build seconds and the
+    bytes the uncompacted CSR adds (the dense terms' slices)."""
+    import numpy as np
+    pp = dev.positional
+    dense = dev.dense_row >= 0
+    return {"occurrences": int(pp.occ_doc.numel()),
+            "occ_doc_bytes": int(pp.occ_doc.numel() * 4),
+            "occ_pos_bytes": int(pp.occ_pos.numel() * 4),
+            "occ_pos_bytes_as_u16": int(pp.occ_pos.numel() * 2),
+            "doc_len_bytes": int(pp.doc_len.numel() * 4),
+            "extra_csr_bytes": int(dev.lengths[dense].astype(np.int64).sum()
+                                   * 4) if dense.any() else 0,
+            "positional_bytes": pp.memory_usage(),
+            "build": {**pp.upload_detail, **dev.upload_detail}}
+
+
 MESH_DOCS = 300_000   # documents of the mesh phase's synthetic index
 
 
@@ -2294,7 +2607,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                 kernels=(), routes_needed=(), kinds: bool = False,
                 forms_needed=(), measure_only: bool = False,
                 profile_classes=None, mesh_shards: int = 1,
-                fuzzy: bool = True, shard_launches=()):
+                fuzzy: bool = True, shard_launches=(),
+                positional: bool = False, card: str = ""):
     """Load docs documents through ``Application``, serve n_queries over
     TCP from conns connections (with kinds, then the boolean, synonym and
     fuzzy queries and the ``search_or`` check), remove rows and re-ask;
@@ -2306,7 +2620,10 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
     on the class names the profile times alone. mesh_shards > 1 serves a
     doc-sharded index (``device.mesh_shards``); shard_launches are the
     kernels and launch forms every shard must have launched. fuzzy=False
-    leaves out the FUZZY queries. -> (launches, summary)."""
+    leaves out the FUZZY queries. positional (a verified serve) builds the
+    positional index (``device.positional_verify``) and runs the
+    ``positional`` phase after the SEARCH/COUNT mix and again after the
+    removals; its lines carry ``card``. -> (launches, summary)."""
     import numpy as np
     from mygramdb_tpu_torch import native
     from mygramdb_tpu_torch.app.application import Application
@@ -2317,7 +2634,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
     t_phase = time.time()
     t0 = time.time()
     gen, seed_path, cfg_path, status, groups = write_inputs(
-        docs, seed, verified, synonyms=kinds, mesh_shards=mesh_shards)
+        docs, seed, verified, synonyms=kinds, mesh_shards=mesh_shards,
+        positional=positional)
     t_corpus = time.time() - t0
     config = load_config(cfg_path)
     app = Application(config, seed_path=seed_path)
@@ -2372,6 +2690,20 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         queries = make_queries(gen, ctx, n_queries, seed)
     emit(load)
     ref = Reference(ctx, status, texts, groups)
+    if positional:
+        check(dev.positional is not None, "no positional index")
+        check(np.array_equal(dev.positional.doc_len.cpu().numpy()[1:docs + 1],
+                             ref.doc_len[1:]),
+              "the positional doc lengths are not the texts' lengths")
+        t0 = time.time()
+        pos_plans, refused, drawn = positional_plans(gen, ctx, texts, seed)
+        pos_line = {"phase": name, "step": "positional", "card": card,
+                    **positional_bytes(dev), "terms_drawn": drawn,
+                    "terms_planned": len(pos_plans),
+                    "refused_by_bucket": refused,
+                    "plan_s": time.time() - t0,
+                    "profile": positional_batch_profile(dev, pos_plans)}
+        emit(pos_line)
     kind_queries, kind_summary = [], {}
     if kinds:
         check(ctx.synonyms is not None
@@ -2418,6 +2750,8 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
                                 1e3 * sorted(v)[len(v) // 2]}
                             for k, v in sorted(by_class.items())},
                 "routes_before_remove": dict(runtime.routes)})
+        if positional:
+            pos_runs = [positional_phase(ctx, ref, pos_plans, set(), conns)]
         first = results + kind_results
         # remove rows that answers contained; ask the queries whose
         # match sets held them again
@@ -2431,6 +2765,18 @@ def serve_phase(name: str, docs: int, seed: int, n_queries: int,
         for pk in removed:
             check(ctx.remove_row(str(pk)) is not None, f"remove {pk}")
         results2 = asyncio.run(drive(srv.port, again, conns))
+        if positional:
+            pos_runs.append(positional_phase(ctx, ref, pos_plans, removed,
+                                             conns))
+            prof = pos_line["profile"]
+            served_b = pos_runs[0]["most_served_batch"]
+            at = min([b for b in POSITIONAL_PROFILE_B if b >= served_b],
+                     default=POSITIONAL_PROFILE_B[-1])
+            emit({"phase": name, "step": "positional_served",
+                  "card": pos_line["card"],
+                  "before_remove": pos_runs[0], "after_remove": pos_runs[1],
+                  "profile_B=1": prof["B=1"],
+                  f"profile_most_served_B={at}": prof[f"B={at}"]})
         launches = dict(runtime.launches)
         forms = dict(runtime.launch_forms)
         routes = dict(runtime.routes)
@@ -2744,14 +3090,17 @@ def main(argv=None) -> int:
         verified_routes = ("fused_dense", "fused_sparse", "verify_exact")
         got, served = serve_phase(
             "verified_serve", args.docs, args.seed, 1500, verified=True,
-            profile_path=args.profile, kinds=True,
+            profile_path=args.profile, kinds=True, positional=True,
+            card=card,
             kernels=("dense_and", "reduce_rows", "ast_words", "slice_gather",
                      "sparse_probe", "tf_rows_padded"),
             routes_needed=verified_routes + (
                 "ast_device", "threshold_merge", "threshold_bitmap",
                 "or_rows"),
-            # unions run K2's row reduce; the fused sparse program compacts
-            forms_needed=("reduce_rows.or", "sparse_probe.compact"))
+            # unions run K2's row reduce; the fused sparse program
+            # compacts; the positional program gathers through K3
+            forms_needed=("reduce_rows.or", "sparse_probe.compact",
+                          "slice_gather.positional"))
         shapes = served["launch_shapes"]
         # K2's lines: the shapes that took most of the served launches
         op, B, K, W, _ = shapes["reduce_rows"][0]

@@ -14,7 +14,8 @@ The boolean, OR and fuzzy paths (``ast_words``, ``search_or``,
 ``search_by_threshold``) read only what ``state_from_jax`` already carries
 (bitmaps, postings, offsets, lengths, tombstones), so they need nothing
 new here; ``tests/test_torch_boolean.py`` and
-``tests/test_torch_threshold.py`` run them on a carried-over state.
+``tests/test_torch_threshold.py`` run them on a carried-over state. A
+positional index comes across with ``positional_state_from_jax``.
 """
 
 from __future__ import annotations
@@ -28,28 +29,59 @@ def state_from_jax(device_index) -> dict:
     """-> dict of numpy arrays and ints (see ``index.device_index.host_state``).
 
     The JAX device CSR ends in a sentinel pad tail for its DMA gather;
-    the port's CSR has none, so the tail is stripped here. Only the
-    single-device layout without a positional index is supported."""
+    the port's CSR has none, so the tail is stripped here. A JAX index
+    with a positional index keeps its CSR uncompacted (so nothing else is
+    stripped) and carries ``positional_state_from_jax``'s arrays under
+    ``"positional"``. Only the single-device layout is supported."""
     d = device_index
-    if d.postings_sh is not None or d.positional is not None:
+    if d.postings_sh is not None:
         raise ValueError("state_from_jax: only the single-device layout "
-                         "without a positional index is supported")
+                         "is supported")
     dense_row = np.asarray(d.dense_row, dtype=np.int32)
     lengths = np.asarray(d.lengths)
     post = np.asarray(d.postings)
     P = int(lengths[dense_row < 0].astype(np.int64).sum()) \
-        if d.n_dense else int(d.built.postings.size)
+        if d.n_dense and d.positional is None else int(d.built.postings.size)
     if not (post[P:] == SENTINEL).all():
         raise ValueError("state_from_jax: unexpected device CSR layout")
-    return {"bitmaps": np.asarray(d.bitmaps, dtype=np.uint32),
-            "postings": post[:P].astype(np.int32),
-            "offsets": np.asarray(d._dev_offsets, dtype=np.int64),
-            "lengths": lengths.copy(),
-            "dense_row": dense_row.copy(),
-            "deleted": np.asarray(d.deleted_host, dtype=np.uint32).copy(),
-            "ones_row": int(d.ones_row), "zeros_row": int(d.zeros_row),
-            "n_words": int(d.n_words),
-            "n_docs_capacity": int(d.n_docs_capacity)}
+    state = {"bitmaps": np.asarray(d.bitmaps, dtype=np.uint32),
+             "postings": post[:P].astype(np.int32),
+             "offsets": np.asarray(d._dev_offsets, dtype=np.int64),
+             "lengths": lengths.copy(),
+             "dense_row": dense_row.copy(),
+             "deleted": np.asarray(d.deleted_host, dtype=np.uint32).copy(),
+             "ones_row": int(d.ones_row), "zeros_row": int(d.zeros_row),
+             "n_words": int(d.n_words),
+             "n_docs_capacity": int(d.n_docs_capacity)}
+    if d.positional is not None:
+        state["positional"] = positional_state_from_jax(d)
+    return state
+
+
+def positional_state_from_jax(device_index) -> dict:
+    """A JAX index's ``DevicePositional`` -> the port's compact arrays (see
+    ``index.positional.DevicePositional.from_state``).
+
+    The JAX occurrence arrays are (rows, 128) views whose term regions
+    start 128-aligned (``occ_base8`` rows) and end in a pad tail; the port
+    keeps exactly the real occurrences, term after term, positions as
+    int32, and the doc lengths cut to the index's capacity."""
+    from .index.positional import OCC_ALIGN, occurrence_starts
+    pp = device_index.positional
+    occ_len = np.asarray(pp.occ_len, dtype=np.int64)
+    base = (np.asarray(pp.occ_base8, dtype=np.int64) * OCC_ALIGN
+            - occurrence_starts(occ_len))
+    cells = np.repeat(base, occ_len) + np.arange(int(occ_len.sum()),
+                                                 dtype=np.int64)
+    cap = int(device_index.n_docs_capacity)
+    return {"occ_doc": np.asarray(pp.occ_doc8).reshape(-1)[cells]
+            .astype(np.int32),
+            "occ_pos": np.asarray(pp.occ_pos8).reshape(-1)[cells]
+            .astype(np.int32),
+            "occ_len": occ_len.copy(),
+            "doc_len": np.asarray(pp.doc_len_pad, dtype=np.int32)[:cap]
+            .copy(),
+            "overflow": sorted(int(x) for x in pp.overflow)}
 
 
 def sharded_state_from_jax(device_index) -> dict:

@@ -43,7 +43,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
 from ..parallel import mesh as pmesh
 from ..ops.posting_ops import (gather_slices, pack_sparse_args,
@@ -169,7 +168,8 @@ def host_state(built: BuiltIndex, dense_df_ratio: float = 0.01,
                max_dense_terms: int = 8192, mesh_shards: int = 1,
                cuda: bool = False) -> dict:
     """The index's arrays, built on the host: bitmaps (D+2, W) uint32,
-    postings (P,) int32 without dense slices, offsets int64, lengths,
+    postings (P,) int32 without dense slices (with them when the built
+    index has positions), offsets int64, lengths,
     dense_row, deleted (W,) uint32 and the scalar layout fields. With
     mesh_shards S > 1 the CSR is ``sharded_csr``'s in place of postings
     and offsets."""
@@ -218,7 +218,10 @@ def host_state(built: BuiltIndex, dense_df_ratio: float = 0.01,
         return state
     postings = np.asarray(built.postings, dtype=np.int32)
     offsets = np.asarray(built.offsets, dtype=np.int64)
-    if n_dense:
+    # the positional index repeats every posting its occurrence count, so
+    # with one the CSR keeps the dense terms' slices too (their offsets
+    # are then real; K1 and K3 read sparse slices only)
+    if n_dense and built.positional is None:
         keep = np.ones(V, dtype=bool)
         keep[dense] = False
         postings = postings[np.repeat(keep, built.lengths)]
@@ -287,7 +290,8 @@ class DeviceIndex:
         # filter rows are full (W,) rows on the home device; the mesh
         # programs cut them per shard
         self._row_sharding = None
-        self.positional = None  # the positional engine: item 14
+        self.positional = None
+        self.upload_detail: dict = {}
         self.mesh = mesh
         if mesh is not None:
             self._setup_mesh(state, mesh)
@@ -300,6 +304,34 @@ class DeviceIndex:
         self.deleted = runtime.to_device(self.deleted_host, dev)
         self._ones_words = torch.full((self.n_words,), -1, dtype=torch.int32,
                                       device=dev)
+        self._setup_positional(state, built)
+
+    def _setup_positional(self, state: dict, built) -> None:
+        """The positional occurrence index (``index/positional.py``), on
+        one device: from the state's compact arrays, or built from the
+        built index's positions over the full device CSR. A failed build
+        fails construction."""
+        import time
+        from .positional import DevicePositional
+        t0 = time.time()
+        if state.get("positional") is not None:
+            self.positional = DevicePositional.from_state(
+                state["positional"], device=self._device)
+        elif built.positional is not None:
+            self.positional = DevicePositional(
+                built.positional, self.n_docs_capacity, device=self._device,
+                postings_dev=self.postings)
+        else:
+            return
+        self.upload_detail["positional_s"] = round(time.time() - t0, 2)
+
+    def set_positional_doc_lengths(self, doc_len) -> None:
+        """Upload per-doc normalized-text lengths (BM25 norm for the
+        positional score mode). doc_len: (n+1,) int32-like indexed by doc
+        id (or None to keep zeros)."""
+        if self.positional is None or doc_len is None:
+            return
+        self.positional.set_doc_lengths(doc_len)
 
     def _setup_mesh(self, state: dict, mesh) -> None:
         """Place each shard's bitmap block, tombstone and all-ones words
@@ -326,9 +358,13 @@ class DeviceIndex:
         self._ones_words = pmesh.ShardedTensor(
             [torch.full((self.words_local,), -1, dtype=torch.int32,
                         device=d) for d in devices], axis=0)
+        # the occurrence arrays are not doc-sharded: on a mesh the
+        # positional index stays off, as in the JAX package
         StructuredLog().event("device_index_mesh").field(
             "shards", S).field("layout", mesh.layout()).field(
-            "shard_docs", self.shard_docs).info()
+            "shard_docs", self.shard_docs).field(
+            "positional", "off on a mesh" if self.built.positional
+            is not None else "none").info()
 
     @property
     def text_doc_sharding(self):
@@ -354,6 +390,8 @@ class DeviceIndex:
         else:
             out.update({"postings": self.postings.cpu().numpy(),
                         "offsets": self.dev_offsets.copy()})
+        if self.positional is not None:
+            out["positional"] = self.positional.state()
         return out
 
     def _words_on_device(self, words: np.ndarray):
@@ -1148,9 +1186,87 @@ class DeviceIndex:
         return int(max(p.numel() for p in self.postings_sh.parts) * 4)
 
     # ------------------------------------------------------------------
-    # Device paths of the JAX package not ported yet
+    # Positional verified search (ops/positional_ops.py)
     # ------------------------------------------------------------------
-    plan_positional = not_ported(__name__, "DeviceIndex.plan_positional",
-                                 "14")
-    search_verified_positional = not_ported(
-        __name__, "DeviceIndex.search_verified_positional", "14")
+    def plan_positional(self, tid_offsets) -> Optional[dict]:
+        """Plan a single-term positional verified search.
+
+        tid_offsets: [(tid, in-term offset)], one entry per gram placement
+        (from textproc.query_gram_offsets, which also decides coverage;
+        the caller plans covered terms only). Returns the per-query plan
+        dict the batched program consumes, or None where the JAX package
+        refuses the same inputs: no positional index, overflowing
+        documents, an empty gram, or a shape past the last bucket. Plans
+        carry int64 occurrence starts (``d_start``, ``p_start``) where the
+        JAX package's carry aligned row indices."""
+        pp = self.positional
+        if pp is None or pp.overflow or not tid_offsets:
+            return None
+        from .positional import (C_BUCKETS, CO_BUCKETS, C2_BUCKETS,
+                                 CO2_BUCKETS, G_BUCKETS, _bucket)
+        dfs = [int(self.lengths[t]) for t, _ in tid_offsets]
+        if any(d == 0 for d in dfs):
+            return None  # empty AND; caller handles via estimated_size
+        di = int(np.argmin(dfs))
+        d_tid, d_term_off = tid_offsets[di]
+        C = _bucket(dfs[di], C_BUCKETS)
+        Co = _bucket(max(int(pp.occ_len[d_tid]), 1), CO_BUCKETS)
+        probes = [(t, o - d_term_off)
+                  for j, (t, o) in enumerate(tid_offsets) if j != di]
+        G = _bucket(max(len(probes), 1), G_BUCKETS)
+        C2 = _bucket(max([1] + [int(self.lengths[t])
+                                for t, _ in probes]), C2_BUCKETS)
+        Co2 = _bucket(max([1] + [max(int(pp.occ_len[t]), 1)
+                                 for t, _ in probes]), CO2_BUCKETS)
+        if None in (C, Co, G, C2, Co2):
+            return None
+        pad = G - len(probes)
+        return {"d_off": int(self.dev_offsets[d_tid]), "d_len": dfs[di],
+                "d_start": int(pp.occ_start[d_tid]),
+                "d_olen": int(pp.occ_len[d_tid]),
+                "p_off": [int(self.dev_offsets[t]) for t, _ in probes]
+                + [0] * pad,
+                "p_len": [int(self.lengths[t]) for t, _ in probes]
+                + [0] * pad,
+                "p_start": [int(pp.occ_start[t]) for t, _ in probes]
+                + [0] * pad,
+                "p_olen": [int(pp.occ_len[t]) for t, _ in probes]
+                + [0] * pad,
+                "p_delta": [int(d) for _, d in probes] + [0] * pad,
+                "p_valid": [True] * len(probes) + [False] * pad,
+                "C": C, "Co": Co, "C2": C2, "Co2": Co2, "G": G}
+
+    def search_verified_positional(self, plan: dict, limit_b: int,
+                                   descending: bool,
+                                   score_mode: bool = False,
+                                   idf: float = 0.0, k1: float = 1.2,
+                                   b: float = 0.75, avgdl: float = 1.0,
+                                   require_match: bool = True,
+                                   force_probes: bool = False,
+                                   extra_words=()):
+        """Single-query positional verified search (a batch of one; the
+        micro-batcher groups concurrent plans by bucket tuple). Returns
+        (total, ids, scores, pre) like search_and_verified."""
+        from ..ops.positional_ops import positional_verify_batch
+        pp = self.positional
+        n = min(limit_b, plan["Co"])
+        if self.batcher is not None:
+            return self.batcher.submit_positional(
+                plan, n, descending, score_mode=score_mode, idf=idf,
+                k1=k1, b=b, avgdl=avgdl, require_match=require_match,
+                use_doc_probes=force_probes, extra=tuple(extra_words))
+        extra = (self._pack_extra(list(extra_words))
+                 if extra_words else None)
+        out = positional_verify_batch(
+            self.postings, pp.occ_doc, pp.occ_pos, self.deleted,
+            pp.doc_len, [plan], n, self.n_words, descending,
+            score_mode=score_mode,
+            idf=np.asarray([[idf]], dtype=np.float32), k1=k1, b=b,
+            avgdl=avgdl, require_match=require_match,
+            use_doc_probes=force_probes, extra=extra)
+        if score_mode:
+            pre, count, ids, scores = out
+            return int(count[0]), ids[0], scores[0], int(pre[0])
+        pre, count, ids = out
+        return (int(count[0]), ids[0],
+                np.zeros(ids.shape[1], dtype=np.float32), int(pre[0]))

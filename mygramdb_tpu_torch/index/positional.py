@@ -1,5 +1,4 @@
-"""Positional occurrence index: host finalize (the device store is not
-ported yet: ``DevicePositional`` is ROADMAP Queue 1, item 14).
+"""Positional occurrence index: host finalize + device store.
 
 For every (term, doc) posting of the CSR index this stores the POSITIONS
 at which the gram occurs in the doc's normalized text, enabling exact
@@ -10,7 +9,8 @@ stored text per candidate (search_pipeline.h:159-190); this is a
 beyond-reference axis that makes verify_text cost O(occurrences moved)
 instead of O(candidates x text bytes).
 
-Layout:
+Host layout (the JAX package's, byte for byte, so dumps stay readable by
+both packages):
   occ_cnt  (P,)  uint16 — occurrences per posting, parallel to the CSR
                   postings array (same per-term offsets/lengths)
   occ_pos  (O,)  uint16 — positions grouped by (term, doc, pos) in CSR
@@ -27,6 +27,14 @@ Positions are uint16; documents longer than POS_CAP code points land in
 ``overflow_docs`` and disqualify the positional path for the segment
 (the text/host verify paths still cover them) — real corpora cap far
 below this.
+
+Device layout (``DevicePositional``; the port's own, without the TPU's
+lane rules): ``occ_doc`` (O,) int32 and ``occ_pos`` (O,) int32 hold exactly
+the O real occurrences, term after term in CSR order, addressed by
+``occ_start`` (V,) int64, the exclusive cumulative sum of ``occ_len``;
+``doc_len`` (capacity,) int32 holds the BM25 norm lengths. Positions are
+int32 on the device so that the CSR slice gather (K3) reads them as it
+reads doc ids.
 """
 
 from __future__ import annotations
@@ -35,8 +43,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Set, Tuple
 
 import numpy as np
-
-from .._not_ported import not_ported
 
 POS_CAP = 65534          # uint16 minus the 0xFFFF pad sentinel
 POS_PAD = 0xFFFF
@@ -115,8 +121,135 @@ def _bucket(n: int, buckets) -> Optional[int]:
     return None
 
 
-# the device store of the occurrence index (ops/positional_ops.py reads it)
-DevicePositional = not_ported(__name__, "DevicePositional", "14")
+def occurrence_starts(occ_len: np.ndarray) -> np.ndarray:
+    """(V,) int64 start of each term's occurrences in the compact layout:
+    the exclusive cumulative sum of occ_len."""
+    occ_len = np.asarray(occ_len, dtype=np.int64)
+    starts = np.zeros(occ_len.shape[0], dtype=np.int64)
+    if occ_len.size:
+        np.cumsum(occ_len[:-1], out=starts[1:])
+    return starts
+
+
+def compact_cells(occ_base: np.ndarray, occ_len: np.ndarray, dev):
+    """Cell index, in the 128-aligned host array, of every real occurrence
+    in compact order -> (O,) int64 tensor on ``dev``, computed there from
+    the (V,) arrays: term t's cells are ``occ_base[t] + [0, occ_len[t])``."""
+    import torch
+    from ..ops import runtime
+    occ_len = np.asarray(occ_len, dtype=np.int64)
+    O = int(occ_len.sum())
+    base = np.asarray(occ_base, dtype=np.int64) - occurrence_starts(occ_len)
+    return (torch.repeat_interleave(runtime.to_device(base, dev),
+                                    runtime.to_device(occ_len, dev),
+                                    output_size=O)
+            + torch.arange(O, dtype=torch.int64, device=dev))
+
+
+class DevicePositional:
+    """Device-resident occurrence index for one immutable segment.
+
+    ``occ_doc`` and ``occ_pos`` (O,) int32 hold one entry per occurrence
+    in CSR order; a term's occurrences start at ``occ_start[t]`` (host
+    int64) and number ``occ_len[t]``. ``doc_len`` (capacity,) int32 is the
+    BM25 norm of the score mode. The constructor is the JAX package's:
+    ``occ_doc`` is built on the device by repeating each CSR posting
+    (``postings_dev`` when given, else ``postings`` uploaded) its
+    occurrence count; ``occ_pos`` is the aligned host array's real cells,
+    compacted on the device by index arithmetic (``offsets`` and
+    ``lengths``, which the JAX package's host build reads, are not
+    needed). Offsets and lengths are int64 throughout."""
+
+    def __init__(self, pp: PositionalPostings, capacity: int,
+                 doc_len: Optional[np.ndarray] = None, device=None,
+                 postings: Optional[np.ndarray] = None,
+                 offsets: Optional[np.ndarray] = None,
+                 lengths: Optional[np.ndarray] = None,
+                 postings_dev=None):
+        import time as _time
+        import torch
+        from ..ops import runtime
+        dev = (torch.device(device) if device is not None
+               else runtime.device())
+        self.upload_detail: dict = {}
+        self.occ_len = np.asarray(pp.occ_len, dtype=np.int64)
+        self.occ_start = occurrence_starts(self.occ_len)
+        O = int(self.occ_len.sum())
+        P = int(pp.occ_cnt.size)
+        _t0 = _time.time()
+        # the aligned u16 array goes up as it is (2 B a cell); its real
+        # cells are picked out on the device
+        cells = compact_cells(pp.occ_base, self.occ_len, dev)
+        aligned = runtime.to_device(
+            np.asarray(pp.occ_pos, dtype=np.uint16).view(np.int16), dev)
+        self.occ_pos = (aligned[cells].to(torch.int32) & 0xFFFF
+                        ).contiguous()
+        del aligned, cells
+        self.upload_detail["occ_pos_put_s"] = round(_time.time() - _t0, 2)
+        _t0 = _time.time()
+        if postings_dev is None and postings is not None:
+            postings_dev = runtime.to_device(
+                np.asarray(postings, dtype=np.int32), dev)
+        if postings_dev is None or postings_dev.shape[0] != P:
+            raise ValueError(
+                "DevicePositional: occ_cnt parallels the full CSR "
+                f"({P} postings); got "
+                f"{None if postings_dev is None else postings_dev.shape[0]}")
+        cnt = runtime.to_device(
+            np.asarray(pp.occ_cnt, dtype=np.uint16).view(np.int16), dev
+        ).to(torch.int64) & 0xFFFF
+        self.occ_doc = torch.repeat_interleave(postings_dev, cnt,
+                                               output_size=O).contiguous()
+        del cnt
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.upload_detail["occ_doc_dev_s"] = round(_time.time() - _t0, 2)
+        self._device = dev
+        self.capacity = int(capacity)
+        self.set_doc_lengths(doc_len)
+        self.overflow = set(pp.overflow_docs)
+
+    @classmethod
+    def from_state(cls, state: dict, device=None) -> "DevicePositional":
+        """Build from the compact arrays (``state()``, or
+        ``convert.positional_state_from_jax``)."""
+        from ..ops import runtime
+        self = cls.__new__(cls)
+        self._device = device if device is not None else runtime.device()
+        self.upload_detail = {}
+        self.occ_len = np.asarray(state["occ_len"], dtype=np.int64)
+        self.occ_start = occurrence_starts(self.occ_len)
+        self.occ_doc = runtime.to_device(
+            np.asarray(state["occ_doc"], dtype=np.int32), self._device)
+        self.occ_pos = runtime.to_device(
+            np.asarray(state["occ_pos"], dtype=np.int32), self._device)
+        dl = np.asarray(state["doc_len"], dtype=np.int32)
+        self.capacity = int(dl.shape[0])
+        self.set_doc_lengths(dl)
+        self.overflow = set(state.get("overflow", ()))
+        return self
+
+    def state(self) -> dict:
+        """The compact arrays read back to the host."""
+        return {"occ_doc": self.occ_doc.cpu().numpy(),
+                "occ_pos": self.occ_pos.cpu().numpy(),
+                "occ_len": self.occ_len.copy(),
+                "doc_len": self.doc_len.cpu().numpy(),
+                "overflow": sorted(self.overflow)}
+
+    def set_doc_lengths(self, doc_len) -> None:
+        """Upload (capacity,) doc lengths indexed by doc id (zeros where
+        doc_len is None or shorter)."""
+        from ..ops import runtime
+        dl = np.zeros(self.capacity, dtype=np.int32)
+        if doc_len is not None:
+            n = min(len(doc_len), self.capacity)
+            dl[:n] = np.asarray(doc_len[:n], dtype=np.int32)
+        self.doc_len = runtime.to_device(dl, self._device)
+
+    def memory_usage(self) -> int:
+        return int(self.occ_doc.numel() * 4 + self.occ_pos.numel() * 4 +
+                   self.doc_len.numel() * 4)
 
 
 def finalize_with_positions_np(tids: np.ndarray, docs: np.ndarray,

@@ -3,10 +3,10 @@
 Every op has a plain PyTorch version; the row-AND (K1), the row reduce
 (K2, ``and_rows`` / ``or_rows``), the CSR slice gather (K3) and the
 window-TF family of the verified search (K4, K5, K6) are hand-written CUDA
-kernels launched for CUDA tensors (see ``runtime.kernels``). Modules not
-ported yet (``positional_ops``) are placeholders that raise
-NotImplementedError naming their ROADMAP item; ``wire`` is not carried
-into the port.
+kernels launched for CUDA tensors (see ``runtime.kernels``). The
+positional program (``positional_ops``) is torch ops around K3. ``wire``
+is not carried into the port: a placeholder that raises
+NotImplementedError.
 """
 
 from . import runtime

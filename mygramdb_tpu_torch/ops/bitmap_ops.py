@@ -31,7 +31,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._not_ported import not_ported
 from . import runtime
 
 U32_ONES = 0xFFFFFFFF
@@ -560,9 +559,16 @@ def ast_words(sig: tuple, bitmaps: torch.Tensor, postings: torch.Tensor,
     return out
 
 
-# the JAX package's final reduction of a tree; nothing calls it there
-bitmap_count_topn = not_ported(__name__, "bitmap_count_topn",
-                               "'not carried into the port'")
+def bitmap_count_topn(words: torch.Tensor, n: int, descending: bool,
+                      count_only: bool = False):
+    """Final reduction of a tree: (count, top-n ids) from one (W,) bitmap.
+    -> (count () int32, ids (n,) int32 -1 padded; (1,) zeros with
+    count_only)."""
+    count = popcount_words(words[None, :])[0]
+    if count_only:
+        return count, torch.zeros((1,), dtype=torch.int32,
+                                  device=words.device)
+    return count, topn_words(words[None, :], n, descending)[0]
 
 
 def make_bitmap_from_ids(doc_ids, n_words: int) -> np.ndarray:

@@ -24,7 +24,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._not_ported import not_ported
 from . import runtime
 from .bitmap_ops import _select_first_k, bit_member
 
@@ -47,11 +46,14 @@ def _gather_slices_plain(postings: torch.Tensor, offsets: torch.Tensor,
 
 
 def gather_slices(postings: torch.Tensor, offsets: torch.Tensor,
-                  lengths: torch.Tensor, bucket: int) -> torch.Tensor:
+                  lengths: torch.Tensor, bucket: int,
+                  form: str = "") -> torch.Tensor:
     """K3 wrapper: K CSR slices -> a (K, bucket) int32 tile.
     ``out[k, j] = postings[off[k] + j]`` when ``j < len[k]`` and
     ``off[k] + j < P``, else SENTINEL. postings (P,) int32; offsets and
-    lengths (K,) int64.
+    lengths (K,) int64. ``form`` names a launch form the launch also
+    counts under (``"slice_gather.positional"``: the positional program's
+    gathers).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if postings.device.type == "cpu":
@@ -75,7 +77,7 @@ def gather_slices(postings: torch.Tensor, offsets: torch.Tensor,
         postings, runtime.kernels().mygram_slice_gather, postings.data_ptr(),
         postings.shape[0], offsets.data_ptr(), lengths.data_ptr(), K, bucket,
         out.data_ptr())
-    runtime.check_launch(err, "slice_gather")
+    runtime.check_launch(err, "slice_gather", (form,) if form else ())
     return out
 
 
@@ -317,6 +319,10 @@ def sparse_probe(postings, bitmaps, deleted, extra, args, *, Ks: int,
     return out
 
 
-# exported by the JAX package and never called there
-intersect_candidates = not_ported(__name__, "intersect_candidates",
-                                  "'not carried into the port'")
+def intersect_candidates(cand_mask: torch.Tensor, probe_masks: torch.Tensor,
+                         probe_valid: torch.Tensor) -> torch.Tensor:
+    """AND candidate mask (C,) with probe rows (K, C) where probe_valid (K,).
+
+    Invalid probe rows (padding terms) are treated as all-true."""
+    rows = torch.where(probe_valid[:, None], probe_masks, True)
+    return cand_mask & rows.all(dim=0)

@@ -11,7 +11,8 @@
   first n doc ids (``dense_and.topn``), the K2
   launches by their operation, the sparse-probe launches by their output
   (``sparse_probe.topn`` / ``.compact`` / ``.masked``) and those that
-  probe nothing (``.probe_free``), the window-TF launches in non-overlapping
+  probe nothing (``.probe_free``), the slice gathers of the positional
+  program (``slice_gather.positional``), the window-TF launches in non-overlapping
   mode and the K6 launches that read whole matrix rows (the text store's
   calls); ``launch_shapes`` counts the K2 launches by (op, B, K, W),
   the sparse-probe launches by (form, B, C, Ks, Kd, width, probes) and
@@ -111,6 +112,7 @@ launch_forms: Dict[str, int] = {"dense_and.not_rows": 0,
                                 "sparse_probe.compact": 0,
                                 "sparse_probe.masked": 0,
                                 "sparse_probe.probe_free": 0,
+                                "slice_gather.positional": 0,
                                 "tf_rows.nonoverlap": 0,
                                 "tf_rows_padded.whole_rows": 0}
 # kernel name -> {shape of the call: launches}, for the kernels whose

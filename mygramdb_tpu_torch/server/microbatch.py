@@ -15,6 +15,10 @@ thread of whichever waiter flushes the queue. Program families:
   sparse driver (``ops.fused``: K1 or K3's probe entry, then the
   window-TF kernels K4, K5 or K6), grouped per shape, needle bucket,
   scoring parameters and filter rows.
+- **pos**: the positional verified search
+  (``ops.positional_ops.positional_verify_batch``: torch ops around K3's
+  slice gather), grouped per plan bucket tuple, page, order, scoring
+  parameters and filter rows.
 
 On a doc-sharded index (``idx.mesh``) the dense and the dense-driver
 fused programs run once a shard and merge (``parallel.mesh``): the JAX
@@ -38,7 +42,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .._not_ported import not_ported
 from ..ops import bitmap_ops, runtime
 from ..parallel import mesh as pmesh
 
@@ -427,9 +430,24 @@ class MicroBatcher:
             r.ids = ids_np[i]
             r.event.set()
 
-    # the positional engine's device program is not ported yet
-    _execute_positional = not_ported(
-        __name__, "MicroBatcher._execute_positional", "14")
+    def _execute_positional(self, q: List[_Request], key: tuple) -> None:
+        from ..ops.positional_ops import positional_verify_batch
+        idx = self.idx
+        (_, _C, _Co, _C2, _Co2, _G, n, descending, score_mode,
+         require_match, use_doc_probes, k1, b_, avgdl, _eids) = key
+        pp = idx.positional
+        idf = np.asarray([[r.sparse.get("idf") or 0.0] for r in q],
+                         dtype=np.float32)
+        out = positional_verify_batch(
+            idx.postings, pp.occ_doc, pp.occ_pos, idx.deleted, pp.doc_len,
+            [r.sparse["plan"] for r in q], n, idx.n_words, descending,
+            score_mode=score_mode, idf=idf, k1=k1, b=b_, avgdl=avgdl,
+            require_match=require_match, use_doc_probes=use_doc_probes,
+            extra=self._extra(q))
+        # the positional program never clips
+        self._finish(q, out[0], out[1], out[2],
+                     out[3] if score_mode else None, 0,
+                     clipped=np.zeros(len(q), dtype=bool))
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, int]:

@@ -212,10 +212,21 @@ def test_cpu_tensors_never_launch_a_kernel():
 
 
 def test_not_ported_rows_reduce_raises():
-    # the row reduces are ported (tests/test_torch_boolean.py); the tree's
-    # final reduction, which nothing calls, still names the ROADMAP
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.bitmap_count_topn(None, 1, True)
+    """Nothing of the dense plane raises any more (the name is kept from
+    when the tree's final reduction was a placeholder): it and the row
+    reduces answer as the JAX package's, in its direct and hierarchical
+    top-n regimes."""
+    rng = np.random.default_rng(7)
+    for W in (64, 4096):
+        words = rng.integers(0, 2 ** 32, size=W, dtype=np.uint32)
+        words[rng.random(W) < 0.7] = 0
+        for n, desc, count_only in ((5, True, False), (300, False, False),
+                                    (10, True, True)):
+            jc, jids = J.bitmap_count_topn(jnp.asarray(words), n, desc,
+                                           count_only)
+            tc, tids = T.bitmap_count_topn(i32(words), n, desc, count_only)
+            assert int(jc) == int(tc)
+            assert np.array_equal(np.asarray(jids), tids.numpy())
     bm, rows, *_ = query_inputs(4)
     assert T.or_rows(i32(bm), i32(rows)).shape == (rows.shape[0],
                                                    bm.shape[1])

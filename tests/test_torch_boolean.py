@@ -185,8 +185,12 @@ def test_word_algebra_matches_jax():
     assert np.array_equal(T.make_bitmap_from_ids(ids, 4096),
                           J.make_bitmap_from_ids(ids, 4096))
     assert T.make_bitmap_from_ids(ids, 4096)[0] == 0x80000001
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.bitmap_count_topn(None, 1, True)
+    # a tree's final reduction over the algebra's result
+    w = np.bitwise_and(a, b)
+    jc, jids = J.bitmap_count_topn(jnp.asarray(w), 64, True)
+    tc, tids = T.bitmap_count_topn(i32(w), 64, True)
+    assert int(jc) == int(tc) and np.array_equal(np.asarray(jids),
+                                                 tids.numpy())
 
 
 # ---------------------------------------------------------------------------

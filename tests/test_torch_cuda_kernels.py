@@ -536,6 +536,118 @@ def test_verified_search_on_cuda_matches_cpu():
 # K2: the row reduce (csrc/dense_and.cu), and the boolean / fuzzy paths
 # ---------------------------------------------------------------------------
 
+def positional_pair(dense_df_ratio):
+    """A small index with positions, planted self-overlapping and
+    repeated occurrences, on the card and on the CPU (same doc lengths,
+    same tombstones)."""
+    from mygramdb_tpu_torch.index.builder import IndexBuilder
+    from mygramdb_tpu_torch.index.device_index import DeviceIndex
+    rng = np.random.default_rng(4)
+    planted = ["aaaa aaaaa", "abababab ab", "日日日日 日本日本", "東京東京東京",
+               "the quick quick quick fox"]
+    words = ["".join(rng.choice(list("abcdq"), 3)) for _ in range(60)]
+    kanji = [chr(c) for c in range(0x65E5, 0x65F5)]
+    texts = {}
+    for d in range(1, 3001):
+        parts = list(rng.choice(words, 6)) + ["".join(rng.choice(kanji, 3))]
+        if d % 7 == 0:
+            parts.append(planted[d % len(planted)])
+        texts[d] = " ".join(parts)
+    b = IndexBuilder(2, 1, True, collect_positions=True)
+    b.add_batch(sorted(texts.items()))
+    built = b.finalize()
+    dl = np.zeros(4096, dtype=np.int32)
+    for d, t in texts.items():
+        dl[d] = len(t)
+    out = []
+    for dev in ("cuda", "cpu"):
+        idx = DeviceIndex(built, dense_df_ratio=dense_df_ratio, device=dev)
+        idx.set_positional_doc_lengths(dl)
+        idx.mark_deleted(range(5, 3001, 17))
+        out.append(idx)
+    return built, texts, out[0], out[1], float(dl[1:].mean())
+
+
+@pytest.mark.parametrize("ratio", [0.5, 0.01], ids=["sparse", "dense"])
+def test_positional_program_on_cuda_matches_cpu(ratio):
+    """The positional program on ``cuda:0`` (every occurrence gather a K3
+    launch, counted under ``slice_gather.positional``) against the CPU
+    plain path on the same index: count and top-n descending, ascending,
+    BM25 score mode and ``force_probes`` (over dense grams' slices at
+    ratio 0.01), with a filter row; ids, counts and pre exact, scores to
+    1e-5."""
+    require_cuda()
+    from mygramdb_tpu_torch.utils.textproc import query_gram_offsets
+    built, texts, gpu, cpu, avg = positional_pair(ratio)
+    assert gpu.postings.numel() == built.postings.size
+    terms = ["aaa", "aaaa", "abab", "日日", "日日日", "東京東京", "quick quick",
+             "quick", "日本", "ab"] + [t.split()[0] for t in
+                                       list(texts.values())[:20]]
+    forms = [dict(descending=True), dict(descending=False),
+             dict(descending=True, score_mode=True, idf=1.7, avgdl=avg),
+             dict(descending=True, force_probes=True)]
+    filt = np.random.default_rng(5).integers(
+        0, 2 ** 32, size=gpu.n_words, dtype=np.uint32).view(np.int32)
+    runtime.reset_launches()
+    checked = 0
+    for term in terms:
+        pairs, covered = query_gram_offsets(term.split()[0], 2, 1, True)
+        to = [(built.term_dict.get(g), o) for g, o in pairs]
+        if not covered or None in [t for t, _ in to]:
+            continue
+        plan = gpu.plan_positional(to)
+        assert plan == cpu.plan_positional(to)
+        if plan is None:
+            continue
+        for kw in forms:
+            for extra in ((), (torch.from_numpy(filt),)):
+                g = gpu.search_verified_positional(
+                    plan, 100, extra_words=[e.cuda() for e in extra], **kw)
+                c = cpu.search_verified_positional(
+                    plan, 100, extra_words=list(extra), **kw)
+                assert (g[0], g[3]) == (c[0], c[3]), (term, kw)
+                assert np.array_equal(g[1], c[1]), (term, kw)
+                np.testing.assert_allclose(g[2], c[2], rtol=1e-5)
+                checked += 1
+    assert checked >= 40
+    assert runtime.launch_forms["slice_gather.positional"] \
+        == runtime.launches["slice_gather"] >= 4 * checked
+
+
+def test_positional_batches_on_cuda():
+    """Concurrent plans through the micro-batcher on the card answer as
+    each plan alone on the CPU."""
+    require_cuda()
+    import threading
+    from mygramdb_tpu_torch.server.microbatch import MicroBatcher
+    from mygramdb_tpu_torch.utils.textproc import query_gram_offsets
+    built, texts, gpu, cpu, _ = positional_pair(0.5)
+    gpu.batcher = MicroBatcher(gpu, max_batch=64, window_us=20000)
+    plans = []
+    for t in list(texts.values())[:64]:
+        pairs, covered = query_gram_offsets(t.split()[0], 2, 1, True)
+        plan = cpu.plan_positional([(built.term_dict.get(g), o)
+                                    for g, o in pairs])
+        if covered and plan is not None:
+            plans.append(plan)
+    out = [None] * len(plans)
+
+    def work(i):
+        out[i] = gpu.search_verified_positional(plans[i], 50, bool(i % 2))
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(plans))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+        assert not th.is_alive()
+    assert gpu.batcher.batches_executed < len(plans)
+    for i, (plan, g) in enumerate(zip(plans, out)):
+        c = cpu.search_verified_positional(plan, 50, bool(i % 2))
+        assert (g[0], g[3]) == (c[0], c[3]) and np.array_equal(g[1], c[1])
+
+
 @pytest.mark.parametrize("op", ["and", "or"])
 @pytest.mark.parametrize("B,K,W", [(1, 1, 4), (7, 3, 1028), (64, 8, 34816),
                                    (9, 40, 313344)])

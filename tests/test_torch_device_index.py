@@ -160,11 +160,27 @@ def test_filter_by_ngrams_and_memory(pair):
 
 
 def test_paths_not_ported_raise(pair):
-    built, _, tdev = pair
-    for call in (lambda: tdev.plan_positional(None, []),
-                 lambda: tdev.search_verified_positional([1], None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    """Nothing of the index raises any more (the name is kept from when
+    the positional paths were placeholders): without positions both
+    packages refuse a positional plan; with them the port's
+    ``plan_positional`` and ``search_verified_positional`` answer as the
+    JAX package's (``tests/test_torch_positional.py`` has the rest)."""
+    from test_positional import build, norm
+    from mygramdb_tpu.utils.textproc import query_gram_offsets
+    built, jdev, tdev = pair
+    tid = int(np.argmax(built.lengths))
+    assert tdev.positional is None and tdev.plan_positional([(tid, 0)]) \
+        is None and jdev.plan_positional([(tid, 0)]) is None
+    pbuilt = build()
+    pj = JD.DeviceIndex(pbuilt, dense_df_ratio=0.5)
+    pt = TD.DeviceIndex(pbuilt, dense_df_ratio=0.5)
+    for term in ("日本", "quick", "東京"):
+        pairs, _ = query_gram_offsets(norm(term), 2, 1, True)
+        to = [(pbuilt.term_dict.get(g), o) for g, o in pairs]
+        j = pj.search_verified_positional(pj.plan_positional(to), 128, True)
+        t = pt.search_verified_positional(pt.plan_positional(to), 128, True)
+        assert (int(j[0]), int(j[3])) == (t[0], t[3])
+        assert np.array_equal(np.asarray(j[1]), t[1])
     # the boolean, OR and fuzzy paths are ported
     assert tdev.search_or([1]).dtype == np.int32
     assert tdev.search_by_threshold([1], 1).dtype == np.int32

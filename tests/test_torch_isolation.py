@@ -5,7 +5,8 @@ them fail), imports every module of ``mygramdb_tpu_torch``, then loads a
 small table with ``memory.verify_text: all`` and serves SEARCH, COUNT,
 ``SORT _score``, boolean-expression and ``FUZZY`` queries on the CPU, then
 the same table at ``device.mesh_shards: 2`` (``parallel.mesh``), which
-must answer the same. A source scan shows that no file of the port has an
+must answer the same, and with ``device.positional_verify`` (the
+positional engine's counts equal the verified COUNT's). A source scan shows that no file of the port has an
 import naming the JAX package.
 """
 
@@ -57,6 +58,7 @@ def serve(cfg_dict):
 
 ctx, core = serve(CFG)
 mctx, mcore = serve(dict(CFG, device={"mesh_shards": 2}))
+pctx, pcore = serve(dict(CFG, device={"positional_verify": True}))
 ja = [t[5:8] for t in texts if not t.isascii()][:20]
 lines = [f"SEARCH articles {w} LIMIT 10" for w in gen.vocab[:20]]
 lines += [f"SEARCH articles {t} SORT _score DESC LIMIT 5" for t in ja]
@@ -66,13 +68,31 @@ lines += [f"SEARCH articles (({a} OR {b}) AND NOT {c}) LIMIT 10"
 lines += [f"SEARCH articles {w} FUZZY 1 LIMIT 10" for w in gen.vocab[30:36]]
 out = [core.handle_line(x) for x in lines]
 mesh_out = [mcore.handle_line(x) for x in lines]
+# the positional engine against the verified COUNT of the same terms
+from mygramdb_tpu_torch.utils import textproc
+pdev, pbuilt = pctx.index.device, pctx.index.built
+positional = []
+for w in gen.vocab[:12] + [t.split()[0] for t in ja if t.split()][:8]:
+    pairs, covered = textproc.query_gram_offsets(pctx.normalize(w), 2, 1,
+                                                 True)
+    tids = [pbuilt.term_dict.get(g) for g, _ in pairs]
+    if not covered or not pairs or None in tids:
+        continue
+    plan = pdev.plan_positional([(t, o) for t, (_, o) in zip(tids, pairs)])
+    if plan is not None:
+        total = pdev.search_verified_positional(plan, 10, True)[0]
+        positional.append([f"OK COUNT {total}",
+                           pcore.handle_line(f"COUNT articles {w}")])
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "mygramdb_tpu" or m.startswith("mygramdb_tpu.")))
 print(json.dumps({"modules": len(names), "loaded": loaded,
                   "covered": [n for n in names if n.endswith((
                       ".ops.threshold_ops", ".parallel.mesh",
-                      ".tools.profile_gather"))],
+                      ".tools.profile_gather", ".ops.positional_ops",
+                      ".client.client", ".client.expression",
+                      ".cli.repl"))],
+                  "positional": positional,
                   "responses": out, "mesh_responses": mesh_out,
                   "mesh_shards": mctx.index.device.mesh.shape["docs"],
                   "text_store": type(ctx.device_text).__module__}))
@@ -88,9 +108,17 @@ def test_port_imports_and_serves_without_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["modules"] > 70
-    assert out["covered"] == ["mygramdb_tpu_torch.ops.threshold_ops",
+    assert out["covered"] == ["mygramdb_tpu_torch.cli.repl",
+                              "mygramdb_tpu_torch.client.client",
+                              "mygramdb_tpu_torch.client.expression",
+                              "mygramdb_tpu_torch.ops.positional_ops",
+                              "mygramdb_tpu_torch.ops.threshold_ops",
                               "mygramdb_tpu_torch.parallel.mesh",
                               "mygramdb_tpu_torch.tools.profile_gather"]
+    # the positional engine answers as the verified COUNT does
+    assert len(out["positional"]) >= 10
+    assert all(a == b for a, b in out["positional"]), out["positional"]
+    assert sum(a != "OK COUNT 0" for a, _ in out["positional"]) >= 5
     assert out["mesh_shards"] == 2
     assert out["mesh_responses"] == out["responses"]
     assert out["text_store"] == "mygramdb_tpu_torch.storage.device_text"

@@ -106,12 +106,37 @@ def test_over_max_k_takes_unbatched_path(indexes):
         batched.batcher.submit(list(range(TM.MAX_K + 1)), 128, True)
 
 
-def test_fused_programs_not_ported(indexes):
-    """Of the batched programs only the positional engine's is still a
-    placeholder; the fused verified programs run (next test)."""
-    _, batched, _, _ = indexes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batched.batcher._execute_positional([], ())
+def test_fused_programs_not_ported(torch_cpu):
+    """Every batched program runs (the name is kept from when the
+    positional one was a placeholder): concurrent positional plans share
+    "pos" programs, one dispatch each, and answer as the JAX package."""
+    from test_positional import QUERIES, build, norm
+    from mygramdb_tpu.utils.textproc import query_gram_offsets
+    from mygramdb_tpu_torch.ops import runtime
+    built = build()
+    jdev = JD.DeviceIndex(built, dense_df_ratio=0.5)
+    batched = TD.DeviceIndex(built, dense_df_ratio=0.5)
+    batched.batcher = TM.MicroBatcher(batched, max_batch=16,
+                                      window_us=20000)
+    plans = []
+    for term in QUERIES:
+        pairs, covered = query_gram_offsets(norm(term).split()[0], 2, 1,
+                                            True)
+        to = [(built.term_dict.get(g), o) for g, o in pairs]
+        if covered and None not in [t for t, _ in to]:
+            plans.append((jdev.plan_positional(to),
+                          batched.plan_positional(to)))
+    d0 = runtime.dispatches.count
+    b0 = batched.batcher.batches_executed
+    got = run_concurrently(
+        lambda i: batched.search_verified_positional(
+            plans[i][1], 128, descending=bool(i % 2)), len(plans))
+    assert runtime.dispatches.count - d0 == \
+        batched.batcher.batches_executed - b0 < len(plans)
+    for i, ((pj, _), t) in enumerate(zip(plans, got)):
+        j = jdev.search_verified_positional(pj, 128, bool(i % 2))
+        assert (int(j[0]), int(j[3])) == (t[0], t[3])
+        assert np.array_equal(np.asarray(j[1]), t[1])
 
 
 def test_fused_verify_batches_match_unbatched(indexes):

@@ -129,3 +129,17 @@ def test_mask_to_topn_matches_jax(n, descending):
 def test_u32_helper_roundtrip():
     a = np.asarray([0, 1, 0xFFFFFFFF, 0x80000000], np.uint32)
     assert np.array_equal(u32(i32(a)), a)
+
+
+def test_intersect_candidates_matches_jax():
+    rng = np.random.default_rng(17)
+    cand = rng.random(500) < 0.8
+    probes = rng.random((6, 500)) < 0.9
+    valid = np.array([True, False, True, True, False, True])
+    for v in (valid, np.zeros(6, bool)):
+        want = np.asarray(J.intersect_candidates(
+            jnp.asarray(cand), jnp.asarray(probes), jnp.asarray(v)))
+        got = T.intersect_candidates(torch.from_numpy(cand),
+                                     torch.from_numpy(probes),
+                                     torch.from_numpy(v))
+        assert np.array_equal(got.numpy(), want)
