@@ -5,6 +5,12 @@ Startup order mirrors the reference (§3.1): load + validate config ->
 logging -> tables (catalog) -> optional dump restore / seed load ->
 replication (MySQL binlog) -> TCP + HTTP servers -> signal loop. Shutdown
 runs in reverse.
+
+``initialize()`` is timed as build stages (``utils.trace.build_stages()``):
+``build.initialize`` around it all, ``build.load`` for the seed file's
+load (parse, shred, host postings; the device build inside it is its own
+stage), ``build.device`` for each device index and text store,
+``build.kernels`` for the kernel library and ``build.warmup``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from ..config import Config, load_config
 from ..server.core import ServerCore
 from ..server.snapshot_scheduler import SnapshotScheduler
 from ..server.tcp_server import TcpServer
+from ..utils import trace
 from ..utils.structured_log import StructuredLog, configure_logging
 
 
@@ -67,6 +74,10 @@ class Application:
 
     # ------------------------------------------------------------------
     def initialize(self) -> None:
+        with trace.stage("build.initialize"):
+            self._initialize()
+
+    def _initialize(self) -> None:
         log = self.config.logging
         configure_logging(log.level, log.format, log.file)
         self._verify_dump_directory()
@@ -103,8 +114,9 @@ class Application:
                                   for c in self.catalog.contexts()):
             from ..loader.file_loader import FileLoader
             for ctx in self.catalog.contexts():
-                FileLoader(ctx, self.config.build.batch_size).load_file(
-                    self.seed_path)
+                with trace.stage("build.load", table=ctx.name):
+                    FileLoader(ctx, self.config.build.batch_size).load_file(
+                        self.seed_path)
 
         # compact seeds onto the device (a failed device build fails
         # startup) and run the hot query programs once

@@ -24,7 +24,7 @@ from .query.bm25 import BM25Stats
 from .query.synonyms import SynonymDictionary
 from .storage.document_store import DocumentStore, _pk_sort_key
 from .storage.filter_index import FilterIndex
-from .utils import textproc
+from .utils import textproc, trace
 from .utils.structured_log import StructuredLog
 
 
@@ -210,9 +210,10 @@ class TableContext:
             return
         from .storage.device_text import DeviceTextStore
         dev = self.index.device
-        self.device_text = DeviceTextStore.from_doc_store(
-            self.doc_store, dev.n_docs_capacity,
-            doc_sharding=dev.text_doc_sharding)
+        with trace.stage("build.device", what="text"):
+            self.device_text = DeviceTextStore.from_doc_store(
+                self.doc_store, dev.n_docs_capacity,
+                doc_sharding=dev.text_doc_sharding)
         self._device_text_gen = self.index.built_generation
 
     def fresh_device_text(self):

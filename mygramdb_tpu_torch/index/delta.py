@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..utils import trace
 from .builder import BuiltIndex, IndexBuilder
 from .device_index import DeviceIndex, SearchOptions
 from .term_dict import TermDict
@@ -135,11 +136,12 @@ class MutableIndex:
         self.version = 0  # bumped on every mutation (optimize concurrency)
 
     def _build_device(self, built: BuiltIndex) -> DeviceIndex:
-        device = DeviceIndex(
-            built, dense_df_ratio=self._dense_df_ratio,
-            max_dense_terms=self._max_dense_terms,
-            candidate_buckets=self._candidate_buckets,
-            mesh_shards=self._mesh_shards)
+        with trace.stage("build.device", what="index"):
+            device = DeviceIndex(
+                built, dense_df_ratio=self._dense_df_ratio,
+                max_dense_terms=self._max_dense_terms,
+                candidate_buckets=self._candidate_buckets,
+                mesh_shards=self._mesh_shards)
         if self._microbatch is not None:
             from ..server.microbatch import MicroBatcher
             max_batch, window_us = self._microbatch

@@ -45,6 +45,7 @@ import torch
 
 from ..ops import bitmap_ops, runtime
 from ..parallel import mesh as pmesh
+from ..utils import trace
 from ..ops.posting_ops import (gather_slices, pack_sparse_args,
                                sparse_probe, split_selection)
 from ..ops.threshold_ops import threshold_count_bitmap, threshold_merge
@@ -470,6 +471,7 @@ class DeviceIndex:
     # ------------------------------------------------------------------
     # Core search
     # ------------------------------------------------------------------
+    @trace.traced("index.search_and")
     def search_and(self, tids: Sequence[int], not_tids: Sequence[int] = (),
                    extra_words: Optional[List[torch.Tensor]] = None,
                    opts: SearchOptions = SearchOptions()
@@ -724,6 +726,7 @@ class DeviceIndex:
         bound = int(lens_host[p[ok]].max()) if ok.any() else 0
         return text_store.maxT_bucket(max(bound, 1))
 
+    @trace.traced("index.search_and_verified")
     def search_and_verified(self, tids: Sequence[int], text_store,
                             needles: np.ndarray, needle_lens: np.ndarray,
                             limit_b: int, descending: bool,
@@ -957,6 +960,7 @@ class DeviceIndex:
         b = ids & 31
         return ((words[w] >> b.astype(np.uint32)) & 1).astype(np.int32)
 
+    @trace.traced("index.filter_by_ngrams")
     def filter_by_ngrams(self, candidates: np.ndarray,
                          tids: Sequence[int]) -> np.ndarray:
         """Keep candidates containing ALL terms (host probe for small
@@ -993,6 +997,7 @@ class DeviceIndex:
     # ------------------------------------------------------------------
     # Boolean-AST device evaluation
     # ------------------------------------------------------------------
+    @trace.traced("index.ast_words")
     def ast_words(self, sig: tuple, leaf_tids: Sequence[Sequence[int]],
                   universe) -> Optional[np.ndarray]:
         """Evaluate a boolean AST (shape ``sig`` over ``leaf_tids`` term
@@ -1065,6 +1070,7 @@ class DeviceIndex:
             bitmap_ops.make_bitmap_from_ids(doc_ids, self.n_words))
 
     # ------------------------------------------------------------------
+    @trace.traced("index.search_or")
     def search_or(self, tids: Sequence[int]) -> np.ndarray:
         """Union, ascending doc ids (host materialization; the boolean
         OR / NOT path). Tombstones applied."""
@@ -1097,6 +1103,7 @@ class DeviceIndex:
                 >> (safe & 31).astype(np.uint32)) & 1).astype(bool)
         return hit & in_range
 
+    @trace.traced("index.search_by_threshold")
     def search_by_threshold(self, tids: Sequence[int], min_count: int,
                             max_out: int = 131072) -> np.ndarray:
         """Doc ids contained in >= min_count of the given term postings
@@ -1149,6 +1156,10 @@ class DeviceIndex:
     def warmup(self) -> None:
         """Run the dense, sparse and boolean-tree programs once (first
         CUDA use, kernel library load) before serving."""
+        with trace.stage("build.warmup"):
+            self._warmup()
+
+    def _warmup(self) -> None:
         opts_all = SearchOptions(limit=0)
         opts_top = SearchOptions(limit=100, descending=True)
         for opts in (opts_all, opts_top):
@@ -1236,6 +1247,7 @@ class DeviceIndex:
                 "p_valid": [True] * len(probes) + [False] * pad,
                 "C": C, "Co": Co, "C2": C2, "Co2": Co2, "G": G}
 
+    @trace.traced("index.search_verified_positional")
     def search_verified_positional(self, plan: dict, limit_b: int,
                                    descending: bool,
                                    score_mode: bool = False,

@@ -27,7 +27,10 @@
   compiler process per source, all started together) into a plain-C
   shared library, keyed by a hash of the sources and headers, and loads it
   with ctypes. ``DeviceIndex`` calls it when built on CUDA, so a failed
-  build fails table construction, not a query.
+  build fails table construction, not a query. ``kernel_builds`` counts
+  the builds nvcc ran in this process; the first load is the build stage
+  ``build.kernels`` (``utils.trace``), its attribute ``built`` telling an
+  nvcc build from a load of a library built before.
 - ``launch_on(t, entry, *args)``: every C entry point is called through
   it, with ``t``'s device current and ``t``'s current stream as the last
   argument, so a launch lands on the card that holds its tensors; the
@@ -49,6 +52,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -193,6 +198,7 @@ def kernel_error(msg: str) -> Exception:
 _build_lock = threading.Lock()
 _lib = None
 build_log = ""   # nvcc's output of the last build in this process
+kernel_builds = 0  # nvcc builds run in this process (under _build_lock)
 
 
 def _nvcc() -> str:
@@ -212,7 +218,7 @@ def _sources():
 def _build() -> Path:
     """Compile each source with its own nvcc, all started together, then
     link them into one shared library (skipped when it exists)."""
-    global build_log
+    global build_log, kernel_builds
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):
@@ -224,6 +230,7 @@ def _build() -> Path:
         return lib
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     nvcc = _nvcc()
+    kernel_builds += 1
     objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in srcs]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE,
@@ -281,7 +288,10 @@ def kernels() -> ctypes.CDLL:
     global _lib
     with _build_lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(_build())))
+            with trace.stage("build.kernels") as st:
+                before = kernel_builds
+                _lib = _bind(ctypes.CDLL(str(_build())))
+                st.set(built=kernel_builds > before)
     return _lib
 
 

@@ -22,7 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
-from ..utils import textproc
+from ..utils import textproc, trace
 from .parser import (FilterCondition, FilterOp, OrderByClause, Query,
                      QueryType, SortOrder)
 from .ast import QueryASTParser, QueryNode, contains_boolean_syntax
@@ -199,6 +199,7 @@ class SearchPipeline:
                         estimated_size=est)
 
     # ------------------------------------------------------------------
+    @trace.traced("query.execute")
     def execute(self, query: Query, want_debug: bool = False,
                 collect_all: bool = False) -> PipelineOutput:
         """Full pipeline. collect_all: FACET needs the complete result set

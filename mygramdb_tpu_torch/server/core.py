@@ -23,6 +23,7 @@ from ..query import QueryParser, QueryType
 from ..query.highlighter import Highlighter
 from ..query.parser import Query
 from ..query.pipeline import SearchPipeline
+from ..utils import trace
 from ..utils.errors import MygramError, QueryParseError, DumpError
 from ..utils.structured_log import StructuredLog, truncate_query
 from ..utils.textproc import format_bytes
@@ -136,13 +137,17 @@ class ServerCore:
             set_log_level(str(value))
 
     # ------------------------------------------------------------------
-    def handle_line(self, line: str, conn: Optional[ConnState] = None) -> str:
+    @trace.traced("server.command")
+    def handle_line(self, line: str, conn: Optional[ConnState] = None,
+                    waited_s: float = 0.0) -> str:
+        """waited_s: how long the command waited for the thread running
+        this call (the TCP server's executor), counted in the stats."""
         conn = conn or ConnState()
         t0 = time.perf_counter()
         try:
             query = self.parser.parse(line)
         except (QueryParseError, MygramError) as e:
-            self.stats.record_protocol_error()
+            self.stats.record_protocol_error(waited_s)
             return fmt.format_error(str(e))
         try:
             resp = self._dispatch(query, conn)
@@ -153,7 +158,8 @@ class ServerCore:
                 "query", truncate_query(line)).field("error", repr(e)).error()
             resp = fmt.format_error(f"internal error: {e}")
         self.stats.record_command(query.type.value,
-                                  (time.perf_counter() - t0) * 1000)
+                                  (time.perf_counter() - t0) * 1000,
+                                  waited_s)
         return resp
 
     # ------------------------------------------------------------------
@@ -304,6 +310,20 @@ class ServerCore:
         return fmt.format_facet(counts)
 
     # ------------------------------------------------------------------
+    def batcher_counters(self) -> Optional[Dict[str, float]]:
+        """The micro-batchers' counters summed over the tables (each
+        table's device segment has its own batcher, and a new segment,
+        after an optimize or a load, starts from zero); None where no
+        table batches."""
+        out: Optional[Dict[str, float]] = None
+        for ctx in self.catalog.contexts():
+            b = getattr(ctx.index.device, "batcher", None)
+            if b is None:
+                continue
+            got = b.counters()
+            out = got if out is None else {k: out[k] + got[k] for k in out}
+        return out
+
     def _handle_info(self) -> str:
         s = self.stats
         sections = []
@@ -318,7 +338,13 @@ class ServerCore:
             ("current_connections", s.current_connections),
             ("rejected_connections", s.rejected_connections),
             ("protocol_errors", s.protocol_errors),
+            ("executor_wait_seconds", f"{s.executor_wait_s:.6f}"),
         ]))
+        batcher = self.batcher_counters()
+        if batcher is not None:
+            sections.append(("Batcher", [
+                (f"batcher_{k}", f"{v:.6f}" if isinstance(v, float) else v)
+                for k, v in batcher.items()]))
         cmds = [(f"cmd_{k}", v) for k, v in sorted(
             s.command_counts().items()) if v > 0]
         if cmds:

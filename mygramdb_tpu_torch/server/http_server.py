@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 
 from aiohttp import web
 
+from ..ops import runtime
 from ..query.highlighter import Highlighter
 from ..query.parser import (FilterCondition, FilterOp, HighlightOptions,
                             OrderByClause, Query, QueryType, SortOrder,
@@ -426,6 +427,27 @@ class HttpServer:
         for cmd, n in sorted(s.command_counts().items()):
             lines.append(
                 f'mygramdb_command_total{{command="{cmd}"}} {n}')
+        gauge("mygramdb_executor_wait_seconds_total", s.executor_wait_s,
+              "Seconds commands waited for an executor thread")
+        b = self.core.batcher_counters()
+        if b is not None:
+            gauge("mygramdb_batcher_batches_total", b["batches_executed"],
+                  "Micro-batches executed")
+            gauge("mygramdb_batcher_queries_total", b["queries_batched"],
+                  "Queries in micro-batches")
+            lines.append("# HELP mygramdb_batcher_flushes_total "
+                         "Micro-batches by what flushed them")
+            lines.append("# TYPE mygramdb_batcher_flushes_total gauge")
+            for cause in ("full", "window", "late"):
+                lines.append(f'mygramdb_batcher_flushes_total'
+                             f'{{cause="{cause}"}} {b["flushes_" + cause]}')
+            gauge("mygramdb_batcher_queue_wait_seconds_total",
+                  b["queue_wait_s"],
+                  "Seconds queries waited in the micro-batch queue")
+            gauge("mygramdb_batcher_wake_seconds_total", b["wake_s"],
+                  "Seconds from a query's answer to its thread running")
+        gauge("mygramdb_kernel_builds_total", runtime.kernel_builds,
+              "CUDA kernel library builds by nvcc in this process")
         cs = self.core.cache.stats
         gauge("mygramdb_cache_hits_total", cs.hits, "Cache hits")
         gauge("mygramdb_cache_misses_total", cs.misses, "Cache misses")

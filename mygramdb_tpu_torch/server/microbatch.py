@@ -31,12 +31,31 @@ its pad lanes use the all-zeros row so that they match nothing); only a
 query's own rows are padded, with the all-ones AND identity. The kernels
 hold no per-batch text workspace, so a fused batch is not cut into
 chunks either.
+
+Counters (always on, summed under the batcher's lock as a batch ends;
+``counters()``, which ``INFO`` and ``/metrics`` read): batches and the
+queries in them, flushes by cause (``full``: an arrival filled
+``max_batch``; ``window``: a waiter's timed wait ran out; ``late``: a
+waiter's 5 s re-wait ran out), ``queue_wait_s`` (each query's wait from
+its append to its batch's start) and ``wake_s`` (from a query's
+``event.set()`` to its waiter running again; each waiter appends its
+interval to a deque that the next batch's end or ``counters()`` folds in,
+so a wake-up takes no lock). With ``utils.trace`` on, the same intervals
+are the spans ``batcher.queue`` and ``batcher.wake``, and each batch is a
+``batcher.execute`` span with the children ``batcher.pack`` (the host
+arrays), ``ops.upload`` (them to the device), ``ops.launch`` (the kernel
+wrapper and its launch) and ``ops.pull`` (the answer back); a family
+whose program pulls inside its wrapper (all but the sparse one) records
+its launches and pull as one ``ops.launch`` (attribute ``pull``:
+``inside``), after an ``ops.upload`` where the batcher uploads itself
+(the dense one).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -44,6 +63,7 @@ import numpy as np
 
 from ..ops import bitmap_ops, runtime
 from ..parallel import mesh as pmesh
+from ..utils import trace
 
 MAX_K = 32  # dense row bucket ceiling for batched queries
 
@@ -63,6 +83,14 @@ class _Request:
     clipped: bool = False
     # fused-verify: pre-verify gram-AND match count (BM25 term df source)
     pre: int = 0
+    # trace clock: appended to the queue; answered (its event set)
+    t_in: float = 0.0
+    set_at: Optional[float] = None
+    # with tracing on: the request and the span that submitted it, and
+    # the thread that ran its batch
+    rid: Optional[int] = None
+    parent: Optional[int] = None
+    flusher: Optional[int] = None
 
 
 class MicroBatcher:
@@ -76,6 +104,10 @@ class MicroBatcher:
         self.batches_executed = 0
         self.queries_batched = 0
         self.sparse_batches = 0
+        self.flushes = {"full": 0, "window": 0, "late": 0}
+        self.queue_wait_s = 0.0
+        self.wake_s = 0.0
+        self._woke: deque = deque()  # wake-ups not yet in wake_s
 
     # ------------------------------------------------------------------
     def _enqueue(self, key: tuple, req: _Request) -> None:
@@ -85,22 +117,33 @@ class MicroBatcher:
         thread. _flush is idempotent, so concurrent waiters flushing is
         safe."""
         flush_now = False
+        if trace.enabled:
+            req.rid, req.parent = trace.context()
+        req.t_in = trace.clock()
         with self._lock:
             q = self._queues.setdefault(key, [])
             q.append(req)
             if len(q) >= self.max_batch:
                 flush_now = True
         if flush_now:
-            self._flush(key)
+            self._flush(key, "full")
         # generous overall bound: a first kernel build runs inside the
         # flusher
         deadline = time.monotonic() + 600
         waited = max(self.window, 0.0005)
+        cause = "window"
         while not req.event.wait(timeout=waited):
             if time.monotonic() >= deadline:
                 break
-            self._flush(key)
-            waited = 5.0
+            self._flush(key, cause)
+            waited, cause = 5.0, "late"
+        if req.set_at is not None:
+            woke = trace.clock()
+            self._woke.append(woke - req.set_at)
+            if trace.enabled:
+                mine = req.flusher == threading.get_ident()
+                trace.record("batcher.wake", req.set_at, woke, req.rid,
+                             req.parent, {"family": key[0], "flusher": mine})
         if req.error is not None:
             raise req.error
         if req.ids is None:
@@ -228,26 +271,58 @@ class MicroBatcher:
         return req.total, req.ids
 
     # ------------------------------------------------------------------
-    def _flush(self, key: tuple) -> None:
+    def _flush(self, key: tuple, cause: str) -> None:
+        """Run the batch queued under key, if any; cause: why now
+        (``full``, ``window`` or ``late``)."""
         with self._lock:
             q = self._queues.pop(key, [])
         if not q:
             return
+        t_pop = trace.clock()
         try:
-            if key[0] == "dense":
-                self._execute_dense(q, key[1], key[2])
-            elif key[0] == "fusedv":
-                self._execute_fused_verify(q, key)
-            elif key[0] == "fusedsv":
-                self._execute_fused_sparse_verify(q, key)
-            elif key[0] == "pos":
-                self._execute_positional(q, key)
+            if trace.enabled:
+                attrs = {"family": key[0], "b": len(q), "cause": cause}
+                me = threading.get_ident()
+                for r in q:
+                    r.flusher = me
+                    trace.record("batcher.queue", r.t_in, t_pop, r.rid,
+                                 r.parent, attrs)
+                with trace.span("batcher.execute",
+                                rids=[r.rid for r in q], **attrs):
+                    self._execute(q, key)
             else:
-                self._execute_sparse(q, key)
+                self._execute(q, key)
         except BaseException as e:  # noqa: BLE001 — propagate to waiters
             for r in q:
                 r.error = e
+                r.set_at = trace.clock()
                 r.event.set()
+            return
+        with self._lock:
+            self.batches_executed += 1
+            self.queries_batched += len(q)
+            self.flushes[cause] += 1
+            self.queue_wait_s += sum(t_pop - r.t_in for r in q)
+            self._fold_wakes()
+
+    def _fold_wakes(self) -> None:
+        """Add the wake-ups appended since into wake_s (under _lock: the
+        only place the deque is popped)."""
+        woke = self._woke
+        while woke:
+            self.wake_s += woke.popleft()
+
+    def _execute(self, q: List[_Request], key: tuple) -> None:
+        if key[0] == "dense":
+            self._execute_dense(q, key[1], key[2])
+        elif key[0] == "fusedv":
+            self._execute_fused_verify(q, key)
+        elif key[0] == "fusedsv":
+            self._execute_fused_sparse_verify(q, key)
+        elif key[0] == "pos":
+            self._execute_positional(q, key)
+        else:
+            self._execute_sparse(q, key)
 
     def _extra(self, q: List[_Request]):
         """The batch's filter rows (identical across it: grouped by
@@ -259,8 +334,6 @@ class MicroBatcher:
                 width: int, clipped=None) -> None:
         """Hand each waiter its row; a query clipped when its pre passed
         ``width`` (or, on a mesh, where ``clipped`` says a shard did)."""
-        self.batches_executed += 1
-        self.queries_batched += len(q)
         for i, r in enumerate(q):
             r.clipped = (int(pre[i]) > width if clipped is None
                          else bool(clipped[i]))
@@ -268,15 +341,19 @@ class MicroBatcher:
             r.total = int(count[i])
             r.ids = ids[i]
             r.scores = scores[i] if scores is not None else None
+            r.set_at = trace.clock()
             r.event.set()
 
     def _execute_dense(self, q: List[_Request], limit_b: int,
                        descending: bool) -> None:
         idx = self.idx
+        ph = trace.phases() if trace.enabled else None
         K = max(len(r.rows) for r in q)
         rows = np.full((len(q), K), idx.ones_row, dtype=np.int32)
         for i, r in enumerate(q):
             rows[i, :len(r.rows)] = r.rows
+        if ph is not None:
+            ph.end("batcher.pack")
         extra = self._extra(q)
         if idx.mesh is not None:
             runtime.dispatches.bump()
@@ -284,20 +361,26 @@ class MicroBatcher:
                                    idx.deleted, rows, None, extra, limit_b,
                                    descending, idx.shard_docs)
             count_np, ids_np = out[:, 0], out[:, 1:]
+            if ph is not None:
+                ph.end("ops.launch", kernel="mesh_dense", pull="inside")
             runtime.count_route("mesh_dense", len(q))
         else:
             nrows = np.full((len(q), 1), idx.zeros_row, dtype=np.int32)
+            rows_d = runtime.to_device(rows, idx._device)
+            nrows_d = runtime.to_device(nrows, idx._device)
+            if ph is not None:
+                ph.end("ops.upload")
             count_np, ids_np = bitmap_ops.dense_search_topn_packed(
-                idx.bitmaps, runtime.to_device(rows, idx._device),
-                runtime.to_device(nrows, idx._device), idx.deleted,
+                idx.bitmaps, rows_d, nrows_d, idx.deleted,
                 idx._pack_extra([]) if extra is None else extra, False,
                 extra is not None, limit_b, descending)
+            if ph is not None:
+                ph.end("ops.launch", kernel="dense_and", pull="inside")
             runtime.count_route("dense_batched", len(q))
-        self.batches_executed += 1
-        self.queries_batched += len(q)
         for i, r in enumerate(q):
             r.total = int(count_np[i])
             r.ids = ids_np[i]
+            r.set_at = trace.clock()
             r.event.set()
 
     def _execute_fused_verify(self, q: List[_Request], key: tuple) -> None:
@@ -308,6 +391,7 @@ class MicroBatcher:
          k1, b_, avgdl, require_match, _extra_ids) = key
         store = q[0].sparse["store"]
         B = len(q)
+        ph = trace.phases() if trace.enabled else None
         K = 8 if max(len(r.rows) for r in q) <= 8 else MAX_K
         rows = np.full((B, K), idx.ones_row, dtype=np.int32)
         ndl = np.zeros((B, Nn, NEEDLE_CAP), dtype=np.uint32)
@@ -319,6 +403,8 @@ class MicroBatcher:
             nlens[i] = r.sparse["nlens"]
             if r.sparse.get("idf") is not None:
                 idf[i] = r.sparse["idf"]
+        if ph is not None:
+            ph.end("batcher.pack")
         if idx.mesh is not None:
             pre, clipped, count, ids, scores = pmesh.split_fused(
                 pmesh.sharded_dense_fused_verify(
@@ -328,6 +414,9 @@ class MicroBatcher:
                     score_mode=score_mode, require_match=require_match,
                     idf=idf, k1=k1, b=b_, avgdl=avgdl,
                     nonoverlap=nonoverlap), limit_b, score_mode)
+            if ph is not None:
+                ph.end("ops.launch", kernel="mesh_fused_dense",
+                       pull="inside")
             # a query clips when one of its shards passed C
             self._finish(q, pre, count, ids, scores, C, clipped=clipped)
             return
@@ -338,6 +427,8 @@ class MicroBatcher:
             score_mode=score_mode, nonoverlap=nonoverlap,
             require_match=require_match,
             vbound=sum(r.sparse.get("vbound", C) for r in q))
+        if ph is not None:
+            ph.end("ops.launch", kernel="fused_dense", pull="inside")
         self._finish(q, out[0], out[1], out[2],
                      out[3] if score_mode else None, C)
 
@@ -351,6 +442,7 @@ class MicroBatcher:
          force_probes, _extra_ids) = key
         store = q[0].sparse["store"]
         B = len(q)
+        ph = trace.phases() if trace.enabled else None
         d_off = np.zeros(B, dtype=np.int64)
         d_len = np.zeros(B, dtype=np.int64)
         sp_off = np.zeros((B, Ks), dtype=np.int64)
@@ -374,6 +466,8 @@ class MicroBatcher:
             nlens[i] = s["nlens"]
             if s.get("idf") is not None:
                 idf[i] = s["idf"]
+        if ph is not None:
+            ph.end("batcher.pack")
         out = fused_ops.sparse_search_verify_topn_batch(
             idx.postings, idx.bitmaps, idx.deleted,
             d_off, d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv,
@@ -384,6 +478,8 @@ class MicroBatcher:
             # unless the caller needs pre = exact AND count (score df)
             use_dense_probes=force_probes,
             require_match=require_match, extra=self._extra(q))
+        if ph is not None:
+            ph.end("ops.launch", kernel="fused_sparse", pull="inside")
         self.sparse_batches += 1
         self._finish(q, out[0], out[1], out[2],
                      out[3] if score_mode else None, Kv)
@@ -393,6 +489,7 @@ class MicroBatcher:
         idx = self.idx
         _, C, Cmax, Ks, Kd, limit_b, descending, probe_free, _eids = key
         B = len(q)
+        ph = trace.phases() if trace.enabled else None
         d_off = np.zeros(B, dtype=np.int64)
         d_len = np.zeros(B, dtype=np.int64)
         sp_off = np.zeros((B, Ks), dtype=np.int64)
@@ -409,25 +506,32 @@ class MicroBatcher:
             sp_inv[i] = s["sp_inv"]
             dn_rows[i] = s["dn_rows"]
             dn_inv[i] = s["dn_inv"]
+        packed = pack_sparse_args(d_off, d_len, sp_off, sp_len, sp_inv,
+                                  dn_rows, dn_inv)
+        if ph is not None:
+            ph.end("batcher.pack")
         runtime.dispatches.bump()
         # one upload of the batch's arguments, one launch, one pull
-        args = runtime.to_device(pack_sparse_args(
-            d_off, d_len, sp_off, sp_len, sp_inv, dn_rows, dn_inv),
-            idx._device)
+        extra = self._extra(q)
+        args = runtime.to_device(packed, idx._device)
+        if ph is not None:
+            ph.end("ops.upload")
         out = sparse_probe(
-            idx.postings, idx.bitmaps, idx.deleted, self._extra(q), args,
-            Ks=Ks, Kd=Kd, C=C, Cmax=Cmax, n_words=idx.n_words, form="topn",
+            idx.postings, idx.bitmaps, idx.deleted, extra, args, Ks=Ks,
+            Kd=Kd, C=C, Cmax=Cmax, n_words=idx.n_words, form="topn",
             width=limit_b, descending=descending,
-            sparse_probes=not probe_free,
-            dense_probes=not probe_free).cpu().numpy()
-        count_np, ids_np = out[:, 0], out[:, 1:]
-        self.batches_executed += 1
+            sparse_probes=not probe_free, dense_probes=not probe_free)
+        if ph is not None:
+            ph.end("ops.launch", kernel="sparse_probe")
+        out = out.cpu().numpy()
+        if ph is not None:
+            ph.end("ops.pull")
         self.sparse_batches += 1
-        self.queries_batched += B
         runtime.count_route("sparse_batched", B)
         for i, r in enumerate(q):
-            r.total = int(count_np[i])
-            r.ids = ids_np[i]
+            r.total = int(out[i, 0])
+            r.ids = out[i, 1:]
+            r.set_at = trace.clock()
             r.event.set()
 
     def _execute_positional(self, q: List[_Request], key: tuple) -> None:
@@ -436,23 +540,33 @@ class MicroBatcher:
         (_, _C, _Co, _C2, _Co2, _G, n, descending, score_mode,
          require_match, use_doc_probes, k1, b_, avgdl, _eids) = key
         pp = idx.positional
+        ph = trace.phases() if trace.enabled else None
         idf = np.asarray([[r.sparse.get("idf") or 0.0] for r in q],
                          dtype=np.float32)
+        if ph is not None:
+            ph.end("batcher.pack")
         out = positional_verify_batch(
             idx.postings, pp.occ_doc, pp.occ_pos, idx.deleted, pp.doc_len,
             [r.sparse["plan"] for r in q], n, idx.n_words, descending,
             score_mode=score_mode, idf=idf, k1=k1, b=b_, avgdl=avgdl,
             require_match=require_match, use_doc_probes=use_doc_probes,
             extra=self._extra(q))
+        if ph is not None:
+            ph.end("ops.launch", kernel="positional", pull="inside")
         # the positional program never clips
         self._finish(q, out[0], out[1], out[2],
                      out[3] if score_mode else None, 0,
                      clipped=np.zeros(len(q), dtype=bool))
 
     # ------------------------------------------------------------------
-    def stats(self) -> Dict[str, int]:
-        return {"batches_executed": self.batches_executed,
-                "queries_batched": self.queries_batched,
-                "sparse_batches": self.sparse_batches,
-                "avg_batch": (self.queries_batched //
-                              max(self.batches_executed, 1))}
+    def counters(self) -> Dict[str, float]:
+        """The batcher's counters, read together under its lock."""
+        with self._lock:
+            self._fold_wakes()
+            out = {"batches_executed": self.batches_executed,
+                   "queries_batched": self.queries_batched,
+                   "sparse_batches": self.sparse_batches,
+                   "queue_wait_s": self.queue_wait_s,
+                   "wake_s": self.wake_s}
+            out.update({f"flushes_{k}": v for k, v in self.flushes.items()})
+        return out

@@ -1,7 +1,8 @@
 """Server statistics (reference server/server_stats.h:82,
 statistics_service.h:59): per-command counters, connection counters,
-replication counters, memory peak; aggregated snapshots feed INFO and the
-Prometheus /metrics endpoint."""
+replication counters, memory peak, and the seconds commands waited for an
+executor thread; aggregated snapshots feed INFO and the Prometheus
+/metrics endpoint."""
 
 from __future__ import annotations
 
@@ -26,12 +27,17 @@ class ServerStats:
         self.memory_peak_bytes = 0
         self.slow_queries = 0
         self.total_query_time_ms = 0.0
+        # from the event loop's hand-off to a worker starting the command
+        self.executor_wait_s = 0.0
 
     # ------------------------------------------------------------------
-    def record_command(self, name: str, elapsed_ms: float = 0.0) -> None:
+    def record_command(self, name: str, elapsed_ms: float = 0.0,
+                       waited_s: float = 0.0) -> None:
+        """waited_s: the command's wait for an executor thread."""
         with self._lock:
             self._commands[name.lower()] += 1
             self.total_query_time_ms += elapsed_ms
+            self.executor_wait_s += waited_s
             if elapsed_ms > 100.0:
                 self.slow_queries += 1
 
@@ -51,9 +57,10 @@ class ServerStats:
         with self._lock:
             self.rate_limited_requests += 1
 
-    def record_protocol_error(self) -> None:
+    def record_protocol_error(self, waited_s: float = 0.0) -> None:
         with self._lock:
             self.protocol_errors += 1
+            self.executor_wait_s += waited_s
 
     def record_replication_event(self, error: bool = False) -> None:
         with self._lock:
@@ -95,4 +102,5 @@ class ServerStats:
                 "replication_errors": self.replication_errors,
                 "memory_peak_bytes": self.memory_peak_bytes,
                 "slow_queries": self.slow_queries,
+                "executor_wait_s": self.executor_wait_s,
             }

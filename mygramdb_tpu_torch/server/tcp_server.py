@@ -12,6 +12,13 @@ Parity features: CRLF framing, CIDR allow-list (fail-closed when empty),
 max_connections cap, idle reaper + first-frame timeout, slow-reader
 write cap, per-IP rate limiting, Unix-domain socket listener, SERVER_BUSY
 backpressure when the executor queue is full.
+
+Each command's wait for an executor thread is counted
+(``ServerStats.executor_wait_s``). With ``utils.trace`` on, a command gets
+a request id where its line is read, and the spans ``server.handoff_in``
+(from the hand-off on the loop to the worker starting it),
+``server.handoff_out`` (from the worker's return to the connection task
+resuming) and ``server.write`` (the answer's write and drain).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+from ..utils import trace
 from ..utils.structured_log import StructuredLog
 from .core import ConnState, ServerCore
 
@@ -158,9 +166,14 @@ class TcpServer:
                     writer.write(b"ERROR SERVER_BUSY\r\n")
                     await writer.drain()
                     continue
+                rid = trace.new_request() if trace.enabled else None
                 async with self._inflight:
-                    resp = await loop.run_in_executor(
-                        self.executor, self.core.handle_line, line, conn)
+                    resp, t_ret = await loop.run_in_executor(
+                        self.executor, self._on_worker, line, conn,
+                        trace.clock(), rid)
+                if rid is not None:
+                    t_write = trace.clock()
+                    trace.record("server.handoff_out", t_ret, t_write, rid)
                 data = resp.encode("utf-8") + b"\r\n"
                 if writer.transport.get_write_buffer_size() + len(data) > \
                         WRITE_QUEUE_CAP:
@@ -172,6 +185,8 @@ class TcpServer:
                     await writer.drain()
                 except (ConnectionResetError, BrokenPipeError):
                     break
+                if rid is not None:
+                    trace.record("server.write", t_write, trace.clock(), rid)
         finally:
             stats.record_connection(False)
             self._conn_tasks.discard(task)
@@ -179,3 +194,16 @@ class TcpServer:
                 writer.close()
             except Exception:
                 pass
+
+    def _on_worker(self, line: str, conn: ConnState, t_submit: float,
+                   rid):
+        """``handle_line`` on an executor thread, its wait since
+        ``t_submit`` (the loop's hand-off) counted. -> (the answer, the
+        trace clock at its return where rid is a request id, else 0)."""
+        t_start = trace.clock()
+        if rid is None:
+            return self.core.handle_line(line, conn, t_start - t_submit), 0.0
+        trace.record("server.handoff_in", t_submit, t_start, rid)
+        with trace.request(rid):
+            resp = self.core.handle_line(line, conn, t_start - t_submit)
+        return resp, trace.clock()
