@@ -10,7 +10,8 @@ runs in reverse.
 ``build.initialize`` around it all, ``build.load`` for the seed file's
 load (parse, shred, host postings; the device build inside it is its own
 stage), ``build.device`` for each device index and text store,
-``build.kernels`` for the kernel library and ``build.warmup``.
+``build.kernels`` for the kernel library and ``build.warmup``. The
+``build.load`` stage carries the index builder's ``term_stats``.
 """
 
 from __future__ import annotations
@@ -114,9 +115,12 @@ class Application:
                                   for c in self.catalog.contexts()):
             from ..loader.file_loader import FileLoader
             for ctx in self.catalog.contexts():
-                with trace.stage("build.load", table=ctx.name):
+                with trace.stage("build.load", table=ctx.name) as st:
                     FileLoader(ctx, self.config.build.batch_size).load_file(
                         self.seed_path)
+                    # the term dictionary's work: term_path, terms_new,
+                    # terms_found, term_collisions
+                    st.set(**(ctx.index.built.term_stats or {}))
 
         # compact seeds onto the device (a failed device build fails
         # startup) and run the hot query programs once

@@ -6,6 +6,13 @@ pairs in flat numpy chunks, then one lexsort + dedupe produces the packed CSR
 posting array the device consumes. Bulk builds become O(E log E) vectorized
 work instead of hash-map churn, and the output layout is already the device
 layout (no conversion step).
+
+The port's copy differs from the JAX package's in how grams get their term
+ids: where the term dictionary is the native term table, one call a batch
+resolves every gram and numbers the new ones (``TermDict.resolve``), in
+the order the JAX package's builder gives them, so the built index is the
+same; there is no separate hash -> tid map. The build's counts of the
+table's work are in ``term_stats``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ class BuiltIndex:
     positional: Optional["PositionalPostings"] = None  # occurrence index
     # (index/positional.py) — present when the builder collected gram
     # positions; powers the gather-free verified search
+    term_stats: Optional[Dict[str, object]] = None  # the IndexBuilder's
+    # counts of the term dictionary's work (IndexBuilder.term_stats)
 
     @property
     def n_terms(self) -> int:
@@ -82,11 +91,19 @@ class IndexBuilder:
         self._cur_docs: List[int] = []
         self._max_doc_id = 0
         self._n_docs = 0
-        # native fast path: FNV64 gram hash -> tid (strings materialized only
-        # on first sight of a hash; 64-bit collision odds are ~V^2/2^65)
+        # without the native term table: gram hash -> tid (strings
+        # materialized only on first sight of a hash; 64-bit collision
+        # odds are ~V^2/2^65)
         self._hash_to_tid: Dict[int, int] = {}
         self._use_native = None  # resolved lazily
-        self._h2t = None  # C++ hash table, created with the native path
+        # term_path: who numbered the grams, "native" (the term table) or
+        # "python"; terms_new: terms the build added; terms_found: grams
+        # (after the per-doc dedup; occurrences where positions are
+        # collected) whose term was there before their batch or document;
+        # term_collisions: new terms whose hash another term held
+        self.term_stats = {
+            "term_path": "native" if self.term_dict.native else "python",
+            "terms_new": 0, "terms_found": 0, "term_collisions": 0}
 
     def shred(self, normalized_text: str) -> List[str]:
         return textproc.generate_query_ngrams(
@@ -119,13 +136,17 @@ class IndexBuilder:
                 self.cross_boundary, kanji_extra=self.kanji_extra_ngram)
             if pairs and pairs[-1][1] > POS_CAP:
                 self._pos_overflow.add(doc_id)
+            v0 = len(self.term_dict)
             tids = [self.term_dict.get_or_add(g) for g, _ in pairs]
+            self._count_terms(v0, tids)
             self._record(doc_id, tids,
                          [min(o, POS_CAP) for _, o in pairs])
             return
         grams = set(self.shred(normalized_text))
-        self._record(doc_id,
-                     [self.term_dict.get_or_add(g) for g in grams])
+        v0 = len(self.term_dict)
+        tids = [self.term_dict.get_or_add(g) for g in grams]
+        self._count_terms(v0, tids)
+        self._record(doc_id, tids)
 
     def _add_document_native(self, doc_id: int, text: str) -> None:
         from .. import native
@@ -154,34 +175,18 @@ class IndexBuilder:
         self._record(doc_id, tids.tolist())
 
     def _resolve_tids(self, flat, starts, lens, hashes) -> np.ndarray:
-        """hash array -> tid array. Steady state (vocabulary saturated) is
-        ONE linear pass through the persistent C++ hash table; only
-        never-seen hashes materialize gram strings and consult the real
-        TermDict (so a pre-populated term_dict — compaction — stays the
-        source of truth). Python-dict fallback when native is unavailable."""
-        from .. import native
-        if self._h2t is None:
-            created = native.HashToTid.create()
-            # explicit None check: a fresh (empty) table is len()==0
-            self._h2t = created if created is not None else False
-        if self._h2t is not False:
-            tids, misses = self._h2t.lookup(hashes)
-            if misses:
-                unk_pos = np.nonzero(tids < 0)[0]
-                uniq_h, first = np.unique(hashes[unk_pos],
-                                          return_index=True)
-                get_or_add = self.term_dict.get_or_add
-                new_tids = np.empty(uniq_h.size, dtype=np.int64)
-                for j in range(uniq_h.size):
-                    i = int(unk_pos[first[j]])
-                    s, ln = int(starts[i]), int(lens[i])
-                    new_tids[j] = get_or_add("".join(map(chr,
-                                                         flat[s:s + ln])))
-                self._h2t.insert(uniq_h, new_tids)
-                tids[unk_pos] = new_tids[
-                    np.searchsorted(uniq_h, hashes[unk_pos])]
+        """(start, len, hash) grams of ``flat`` -> tid array. With the
+        native term table: one call, which also numbers the new grams
+        (ascending hash order, as below). Without it, a Python dict keyed
+        by hash; only never-seen hashes materialize gram strings and
+        consult the TermDict (so a pre-populated term_dict — compaction —
+        stays the source of truth)."""
+        v0 = len(self.term_dict)
+        out = self.term_dict.resolve(flat, starts, lens, hashes)
+        if out is not None:
+            tids, collisions = out
+            self._count_terms(v0, tids, collisions)
             return tids
-        # pure-Python fallback (native lib unavailable)
         uniq, first_idx, inverse = np.unique(
             hashes, return_index=True, return_inverse=True)
         h2t = self._hash_to_tid
@@ -196,7 +201,15 @@ class IndexBuilder:
                 tid = get_or_add("".join(map(chr, flat[s:s + ln])))
                 h2t[h] = tid
             tid_of_uniq[j] = tid
-        return tid_of_uniq[inverse]
+        tids = tid_of_uniq[inverse]
+        self._count_terms(v0, tids)
+        return tids
+
+    def _count_terms(self, v0: int, tids, collisions: int = 0) -> None:
+        st = self.term_stats
+        st["terms_new"] += len(self.term_dict) - v0
+        st["terms_found"] += int(np.count_nonzero(np.asarray(tids) < v0))
+        st["term_collisions"] += collisions
 
     def _record(self, doc_id: int, tids: List[int],
                 pos: Optional[List[int]] = None) -> None:
@@ -301,6 +314,11 @@ class IndexBuilder:
         return True
 
     def finalize(self) -> BuiltIndex:
+        built = self._finalize()
+        built.term_stats = dict(self.term_stats)
+        return built
+
+    def _finalize(self) -> BuiltIndex:
         self._flush()
         V = len(self.term_dict)
         if not self._tid_chunks:

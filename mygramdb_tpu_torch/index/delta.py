@@ -13,6 +13,10 @@ split (SURVEY.md §7.5):
   SearchByThreshold / FilterByNgrams / Optimize). Queries run on device and
   the (small) delta is merged host-side; ``optimize()`` compacts the delta
   into a fresh device segment.
+
+The port's copy differs from the JAX package's in one way: where it holds
+a list of grams it resolves them in one call to the term dictionary
+(``lookup_many``, ``get_or_add_many``), which is the native term table.
 """
 
 from __future__ import annotations
@@ -172,13 +176,8 @@ class MutableIndex:
 
     def query_tids(self, grams: Sequence[str]) -> Optional[List[int]]:
         """Term ids for query grams; None if any gram is unknown (=> empty)."""
-        out = []
-        for g in grams:
-            t = self.term_dict.get(g)
-            if t is None:
-                return None
-            out.append(t)
-        return out
+        out = self.term_dict.lookup_many(grams)
+        return None if None in out else out
 
     # ------------------------------------------------------------------
     # Mutation (binlog / SYNC path)
@@ -190,7 +189,7 @@ class MutableIndex:
         with self._lock:
             existed = self._remove_locked(doc_id)
             grams = set(self.shred(normalized_text))
-            tids = {self.term_dict.get_or_add(g) for g in grams}
+            tids = set(self.term_dict.get_or_add_many(list(grams)))
             self.delta.add(doc_id, tids)
             if self.frozen_delta is not None and \
                     doc_id in self.frozen_delta.doc_terms:
@@ -256,7 +255,7 @@ class MutableIndex:
         tids = self.query_tids(grams)
         if tids is None or not tids:
             return 0, np.empty(0, dtype=np.int32)
-        not_tids = [t for t in (self.term_dict.get(g) for g in not_grams)
+        not_tids = [t for t in self.term_dict.lookup_many(not_grams)
                     if t is not None]
 
         # Snapshot under the lock (device segments are immutable; optimize
@@ -315,7 +314,7 @@ class MutableIndex:
         return total, np.union1d(ids_dev, delta_ids).astype(np.int32)
 
     def search_or(self, grams: Sequence[str]) -> np.ndarray:
-        tids = [t for t in (self.term_dict.get(g) for g in grams)
+        tids = [t for t in self.term_dict.lookup_many(grams)
                 if t is not None]
         if not tids:
             return np.empty(0, dtype=np.int32)
@@ -346,7 +345,7 @@ class MutableIndex:
 
     def search_by_threshold(self, grams: Sequence[str], min_count: int,
                             max_out: int = 131072) -> np.ndarray:
-        tids = [t for t in (self.term_dict.get(g) for g in grams)
+        tids = [t for t in self.term_dict.lookup_many(grams)
                 if t is not None]
         if not tids:
             return np.empty(0, dtype=np.int32)
@@ -548,8 +547,7 @@ class MutableIndex:
         dd: List[int] = []
         dp: List[int] = []
         over_new: set = set()
-        get = self.term_dict.get
-        get_or_add = self.term_dict.get_or_add
+        get_or_add_many = self.term_dict.get_or_add_many
         for d, _ts in frozen.doc_terms.items():
             if d in tombs_at_snap:
                 continue
@@ -561,11 +559,9 @@ class MutableIndex:
                 self.cross_boundary, kanji_extra=self.kanji_extra_ngram)
             if pairs and pairs[-1][1] > POS_CAP:
                 over_new.add(d)
-            for g, o in pairs:
-                tid = get(g)
-                dt.append(tid if tid is not None else get_or_add(g))
-                dd.append(d)
-                dp.append(min(o, POS_CAP))
+            dt.extend(get_or_add_many([g for g, _ in pairs]))
+            dd.extend([d] * len(pairs))
+            dp.extend(min(o, POS_CAP) for _, o in pairs)
         # --- surviving device occurrences: expand aligned regions ---
         if pp is not None and built.postings.size:
             lengths64 = built.lengths.astype(np.int64)
