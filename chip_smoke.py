@@ -2552,7 +2552,8 @@ def mesh_phase(docs: int = MESH_DOCS, device: str = "cuda") -> dict:
                 np.zeros((B, 1, S), dtype=np.int64),
                 np.ones((B, 1, S), dtype=bool), needles, nlens, None,
                 C=C, Cmax=C, Kv=C, n=128, maxT=mst.maxT, descending=True,
-                shard_docs=Ds, words_local=Ws, ones_row=m.ones_row, **kw)
+                shard_docs=Ds, words_local=Ws,
+                dn_rows=np.full((B, 1), m.ones_row), **kw)
 
         def fused_one():
             return fused.sparse_search_verify_topn_batch(

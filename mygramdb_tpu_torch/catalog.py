@@ -203,17 +203,24 @@ class TableContext:
         """Pack normalized texts into device memory for the verify
         kernels. A failed build raises: serving on with a host verify
         would hide the card's failure."""
+        from .ops import runtime
         self.device_text = None
         self._device_text_gen = -1
+        runtime.text_store_bytes[self.name] = 0
         if not (self.config.device.enable and
                 self.doc_store.stores_texts):
             return
         from .storage.device_text import DeviceTextStore
         dev = self.index.device
-        with trace.stage("build.device", what="text"):
-            self.device_text = DeviceTextStore.from_doc_store(
+        with trace.stage("build.device", what="text") as st:
+            store = DeviceTextStore.from_doc_store(
                 self.doc_store, dev.n_docs_capacity,
                 doc_sharding=dev.text_doc_sharding)
+            nbytes = store.memory_usage()
+            st.set(layout=store.layout, maxT=store.maxT,
+                   overflow=len(store._overflow), bytes=nbytes)
+        self.device_text = store
+        runtime.text_store_bytes[self.name] = nbytes
         self._device_text_gen = self.index.built_generation
 
     def fresh_device_text(self):

@@ -766,9 +766,10 @@ class DeviceIndex:
                 return None
             if sparse_tids:
                 return self._search_and_verified_sharded(
-                    sparse_tids, text_store, needles, needle_lens, limit_b,
-                    descending, extra, score_mode=score_mode, idf=idf_row,
-                    k1=k1, b=b, avgdl=avgdl, require_match=require_match)
+                    sparse_tids, dense_rows, text_store, needles,
+                    needle_lens, limit_b, descending, extra,
+                    score_mode=score_mode, idf=idf_row, k1=k1, b=b,
+                    avgdl=avgdl, require_match=require_match)
         if sparse_tids:
             sparse_tids = sorted(sparse_tids,
                                  key=lambda t: int(self.lengths[t]))
@@ -802,8 +803,9 @@ class DeviceIndex:
                 dn_inv.append(False)
             lb = min(limit_b, Kv)
             runtime.count_route("fused_sparse")
-            # the window verify subsumes the dense-gram probes (the
-            # needles hold every query term), unless pre must be exact
+            # a window verify that filters subsumes the dense-gram probes
+            # (the needles hold every query term), unless pre must be
+            # exact; one that does not filter probes every gram
             if self.batcher is not None:
                 out = self.batcher.submit_fused_sparse_verify(
                     int(self.dev_offsets[driver]), dlen, sp_off, sp_len,
@@ -874,9 +876,9 @@ class DeviceIndex:
             require_match=require_match, vbound=vbound)
         return self._fused_result(self._unbatched(out, C, score_mode))
 
-    def _search_and_verified_sharded(self, sparse_tids, text_store, needles,
-                                     needle_lens, limit_b: int,
-                                     descending: bool, extra,
+    def _search_and_verified_sharded(self, sparse_tids, dense_rows,
+                                     text_store, needles, needle_lens,
+                                     limit_b: int, descending: bool, extra,
                                      score_mode: bool = False, idf=None,
                                      k1: float = 1.2, b: float = 0.75,
                                      avgdl: float = 1.0,
@@ -885,7 +887,9 @@ class DeviceIndex:
         shapes: C from the longest shard slice of the driver, Kv =
         min(C, 4096), probe-free where C <= Kv (the window verify
         subsumes every gram), the sparse probes otherwise and never the
-        dense ones (``parallel.mesh.sharded_fused_verify``). None (the
+        dense ones (``parallel.mesh.sharded_fused_verify``). Where the
+        verify does not filter (``require_match`` off) every sparse and
+        dense gram probes, since nothing else would apply them. None (the
         exact path) when a slice passes the buckets or a shard's
         survivors passed Kv."""
         S = self.mesh.shape["docs"]
@@ -896,7 +900,10 @@ class DeviceIndex:
                     np.empty(0, dtype=np.float32), 0)
         C = self.verify_cand_bucket(int(self.lengths_sh[:, driver].max()))
         Kv = min(C, self._KV_BUCKET)
-        probes = sparse_tids[1:] if C > Kv else []
+        probes = sparse_tids[1:] if C > Kv or not require_match else []
+        dn_rows = [] if require_match else list(dense_rows)
+        Kd = _k_bucket(len(dn_rows)) if dn_rows else 1
+        dn_rows += [self.ones_row] * (Kd - len(dn_rows))
         Ks = _k_bucket(len(probes)) if probes else 1
         sp_off = np.zeros((1, Ks, S), dtype=np.int64)
         sp_len = np.zeros((1, Ks, S), dtype=np.int64)
@@ -922,7 +929,7 @@ class DeviceIndex:
             descending=descending, shard_docs=self.shard_docs,
             words_local=self.words_local, score_mode=score_mode,
             require_match=require_match, idf=idf[None], k1=k1, b=b,
-            avgdl=avgdl, ones_row=self.ones_row)
+            avgdl=avgdl, dn_rows=np.asarray([dn_rows], dtype=np.int64))
         return self._fused_result(self._sharded_result(
             *pmesh.split_fused(out, lb, score_mode)))
 
@@ -954,6 +961,27 @@ class DeviceIndex:
         return out
 
     # ------------------------------------------------------------------
+    def host_and_among(self, ids: np.ndarray, tids: Sequence[int]
+                       ) -> np.ndarray:
+        """The documents of ``ids`` (sorted) that hold every term of tids
+        and are not deleted, from the host postings: the fused verified
+        search's candidates among the text store's overflow documents,
+        a few thousand ids at most, probed with no device call."""
+        ids = np.asarray(ids, dtype=np.int64)
+        V = self.lengths.shape[0]
+        for t in sorted(set(tids), key=lambda t: int(self.lengths[t])
+                        if t < V else 0):
+            if ids.size == 0:
+                break
+            p = self.postings_of(t) if t < V else ids[:0]
+            if p.size == 0:
+                return ids[:0]
+            pos = np.minimum(np.searchsorted(p, ids), p.size - 1)
+            ids = ids[p[pos] == ids]
+        dead = (self.deleted_host[ids >> 5] >> (ids & 31).astype(np.uint32)
+                ) & 1
+        return ids[dead == 0]
+
     @staticmethod
     def _probe_words(words: np.ndarray, ids: np.ndarray) -> np.ndarray:
         w = ids >> 5

@@ -349,12 +349,27 @@ def count_occurrences(texts: Sequence[Optional[str]],
             for j, term in enumerate(terms):
                 tf[i, j] = t.count(term)
         return tf, dl
-    tbuf, toff = pack_texts(texts)
+    return count_occurrences_packed(*pack_texts(texts), terms)
+
+
+def count_occurrences_packed(tbuf: np.ndarray, toff: np.ndarray,
+                             terms: Sequence[str]
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``count_occurrences`` over texts already packed as ``pack_texts``
+    packs them: tbuf (P,) uint32 code points, toff (n + 1,) int64."""
+    n = toff.shape[0] - 1
+    lib = _load()
+    if lib is None:
+        return count_occurrences(
+            [tbuf[toff[i]:toff[i + 1]].tobytes().decode("utf-32-le")
+             for i in range(n)], terms)
+    tbuf = np.ascontiguousarray(tbuf, dtype=np.uint32)
+    toff = np.ascontiguousarray(toff, dtype=np.int64)
     qbuf, qoff = pack_texts(terms)
-    tf = np.zeros((len(texts), len(terms)), dtype=np.int32)
-    dl = np.zeros(len(texts), dtype=np.int32)
+    tf = np.zeros((n, len(terms)), dtype=np.int32)
+    dl = np.zeros(n, dtype=np.int32)
     lib.mg_count_occurrences(_ptr(tbuf, _c_u32p), _ptr(toff, _c_i64p),
-                             len(texts), _ptr(qbuf, _c_u32p),
+                             n, _ptr(qbuf, _c_u32p),
                              _ptr(qoff, _c_i64p), len(terms),
                              _ptr(tf, _c_i32p), _ptr(dl, _c_i32p))
     return tf, dl

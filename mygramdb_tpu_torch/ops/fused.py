@@ -178,20 +178,24 @@ def _sparse_search_verify_topn_batch(postings, bitmaps, deleted, args,
     entry; ``args`` is ``pack_sparse_args``'s matrix on the device), then
     verified.
 
-    Probe-free: when the slice fits the verify width and the dense probes
-    are off, the window verify subsumes every gram probe (text containing
-    a term contains each of its grams), so no probe runs; filter rows and
-    tombstones still apply. use_dense_probes=False with C > Kv still runs
-    the sparse probes, so that fewer candidates clip.
+    Probe-free: when the slice fits the verify width, the dense probes
+    are off and the verify filters (require_match), the window verify
+    subsumes every gram probe (text containing a term contains each of
+    its grams), so no probe runs; filter rows and tombstones still apply.
+    use_dense_probes=False with C > Kv still runs the sparse probes, so
+    that fewer candidates clip. Where the verify does not filter (a score
+    query whose terms are each one gram), every probe runs: nothing else
+    would apply the other terms.
     -> (pre, count, ids, scores or None); pre > Kv means the compaction
     clipped and that query must take the exact path."""
-    probeless = (not use_dense_probes) and C <= Kv
+    dense_probes = use_dense_probes or not require_match
+    probeless = (not dense_probes) and C <= Kv
     # probeless at Kv == C: the driver slice is the candidate vector
     form = "masked" if probeless and Kv == C else "compact"
     buf = sparse_probe(postings, bitmaps, deleted, extra, args, Ks=Ks,
                        Kd=Kd, C=C, Cmax=Cmax, n_words=n_words, form=form,
                        width=Kv, sparse_probes=not probeless,
-                       dense_probes=use_dense_probes)
+                       dense_probes=dense_probes)
     pre, sel_all = split_selection(buf, args.shape[0])
     count, ids, scores = _verify_stage(
         sel_all, store, ndl, nlen, idf, k1, b, avgdl, Kv=Kv, n=n, Nn=Nn,

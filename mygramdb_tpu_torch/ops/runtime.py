@@ -21,6 +21,13 @@
   ``launches_by_device`` and ``launches_by_shard`` count every launch
   and its forms again by the card it ran on and, inside a mesh program
   (``on_shard``), by the shard it ran for.
+- ``overflow``: always on, never reset, on ``INFO`` and ``/metrics``:
+  ``verify_overflow_queries``, the fused verified queries that had
+  candidates among the text store's overflow documents, and
+  ``verify_overflow_candidates``, those documents, verified or scored on
+  the host (``count_overflow``). ``text_store_bytes``: each table's text
+  store's device bytes, set where the store is built; the gauge
+  ``text_store_bytes`` is their sum.
 - ``kernel_error``: what a wrapper raises when its kernel refuses its
   inputs or fails to launch (see ``errors.py``).
 - ``kernels()``: builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
@@ -150,6 +157,12 @@ routes: Dict[str, int] = {"dense_batched": 0, "dense_unbatched": 0,
                           "mesh_fused_sparse": 0, "mesh_fused_dense": 0,
                           "mesh_ast": 0, "mesh_or": 0, "mesh_to_exact": 0,
                           "threshold_host": 0}
+# the fused verified queries with overflow candidates, and those
+# candidates (count_overflow)
+overflow: Dict[str, int] = {"verify_overflow_queries": 0,
+                            "verify_overflow_candidates": 0}
+# table -> device bytes of its text store
+text_store_bytes: Dict[str, int] = {}
 # device ("cuda:1") -> {kernel or form: launches}; shard -> the same
 launches_by_device: Dict[str, Dict[str, int]] = {}
 launches_by_shard: Dict[int, Dict[str, int]] = {}
@@ -183,6 +196,14 @@ def on_shard(shard):
 def count_route(name: str, queries: int = 1) -> None:
     with _launch_lock:
         routes[name] += queries
+
+
+def count_overflow(candidates: int) -> None:
+    """A fused verified query verified or scored ``candidates`` overflow
+    documents on the host."""
+    with _launch_lock:
+        overflow["verify_overflow_queries"] += 1
+        overflow["verify_overflow_candidates"] += candidates
 
 
 def kernel_error(msg: str) -> Exception:

@@ -434,18 +434,22 @@ def sharded_fused_verify(mesh: Mesh, post_sh: ShardedTensor,
                          words_local: int, score_mode: bool = False,
                          require_match: bool = True, idf=None,
                          k1: float = 1.2, b: float = 0.75,
-                         avgdl: float = 1.0, ones_row: int = 0,
+                         avgdl: float = 1.0, dn_rows=None,
                          nonoverlap: bool = False) -> np.ndarray:
     """Batched fused verified search over the doc-sharded CSR and text:
     per shard, K3's probe entry compacts the driver's local candidates
     (probed by the other sparse grams where C > Kv; probe-free and masked
-    where C <= Kv, the window verify subsuming every gram), K6 windows
-    them over the shard's own padded rows, the tail counts or scores them
-    with the replicated idf and avgdl, and the shards merge: only n ids
-    (and scores) a shard meet on the home device.
+    where C <= Kv, the window verify subsuming every gram; where the
+    verify does not filter, probed by every sparse gram and the dense
+    rows ``dn_rows``), K6 windows them over the shard's own padded rows,
+    the tail counts or scores them with the replicated idf and avgdl, and
+    the shards merge: only n ids (and scores) a shard meet on the home
+    device.
 
-    d_off/d_len (B, S); sp_off/sp_len/sp_inv (B, Ks, S); needles (B, Nn,
-    CAP) uint32; extra (F, W) filter rows or None; idf (B, Nn).
+    d_off/d_len (B, S); sp_off/sp_len/sp_inv (B, Ks, S); dn_rows (B, Kd)
+    dense rows, padded with the all-ones row (probed only where
+    require_match is off); needles (B, Nn, CAP) uint32; extra (F, W)
+    filter rows or None; idf (B, Nn).
     -> host (B, 3 + n) ``[pre | clipped | count | ids]`` (+ n score
     columns in score mode, see ``split_fused``); clipped > 0 means a
     shard's survivors passed Kv and the caller takes the exact path."""
@@ -460,19 +464,20 @@ def sharded_fused_verify(mesh: Mesh, post_sh: ShardedTensor,
     cap = needle_cap_bucket(max(int(np.max(needle_lens)), 1))
     use_range = _needles_need_range(text_store, needles)
     needles_on = _needles_on(text_store, needles, needle_lens, idf, cap)
-    ones = np.full((B, 1), ones_row, dtype=np.int64)
+    dn_rows = np.asarray(dn_rows, dtype=np.int64)
     runtime.dispatches.bump()
     parts = []
     for s, dev in enumerate(devices):
         args = runtime.to_device(pack_sparse_args(
             d_off[:, s], d_len[:, s], sp_off[:, :, s], sp_len[:, :, s],
-            sp_inv[:, :, s], ones, np.zeros_like(ones)), dev)
+            sp_inv[:, :, s], dn_rows, np.zeros_like(dn_rows)), dev)
         ndl, nlen, idf_t = needles_on(dev)
         with runtime.on_shard(s):
             parts.append(_sparse_search_verify_topn_batch(
                 post_sh.parts[s], bitmaps.parts[s], deleted.parts[s], args,
                 shard_part(extra, s, S, dev), text_store.shards[s], ndl,
-                nlen, idf_t, k1, b, avgdl, Ks=Ks, Kd=1, C=C, Cmax=Cmax,
+                nlen, idf_t, k1, b, avgdl, Ks=Ks, Kd=dn_rows.shape[1],
+                C=C, Cmax=Cmax,
                 Kv=Kv, n=n, Nn=Nn, maxT=maxT, descending=descending,
                 score_mode=score_mode, n_words=words_local, cap=cap,
                 nonoverlap=nonoverlap, use_dense_probes=False,

@@ -482,8 +482,11 @@ class SearchPipeline:
     # ------------------------------------------------------------------
     # Fused verified fast path: one dispatch for search + verify_text
     # (+ BM25 score) + top-k. Applies when the rarest gram's df bounds
-    # the candidate count, the text store fully covers the corpus, and
-    # there is no delta overlay (steady state after compaction).
+    # the candidate count and there is no delta overlay (steady state
+    # after compaction). The program answers over the documents the text
+    # store packs (its overflow row rides as a filter row); the overflow
+    # documents among the query's candidates are verified and scored on
+    # the host and merged in (``_fused_overflow``).
     # ------------------------------------------------------------------
     def _try_fused_verified(self, query: Query, dbg: DebugInfo):
         if query.type not in (QueryType.SEARCH, QueryType.COUNT):
@@ -500,7 +503,7 @@ class SearchPipeline:
         if extra is None:
             return None
         dev_text = self.ctx.fresh_device_text()
-        if dev_text is None or dev_text._overflow:
+        if dev_text is None:
             return None
         index = self.sn.index
         if len(index.delta) or index.frozen_delta is not None:
@@ -557,6 +560,7 @@ class SearchPipeline:
         nlens_p = np.zeros(Nn_b, dtype=np.int32)
         nlens_p[:nlens.shape[0]] = nlens
         idf = None
+        idf_host = None  # the terms' idf in float64, for the overflow part
         force_probes = False
         idf_scale_from_pre = False
         if score_mode:
@@ -576,6 +580,7 @@ class SearchPipeline:
                 # the sparse-driver path (probeless pre = driver df).
                 idf = np.zeros(Nn_b, dtype=np.float32)
                 idf[0] = 1.0
+                idf_host = np.ones(1)
                 force_probes = True
                 idf_scale_from_pre = True
             else:
@@ -583,11 +588,11 @@ class SearchPipeline:
                 for ti in terms:
                     total_df, _ = index.search_and(ti.grams, limit=1)
                     dfs.append(total_df)
-                idf_t = np.asarray(
+                idf_host = np.asarray(
                     [BM25Scorer.compute_idf(self.sn.bm25.doc_count, df)
-                     for df in dfs], dtype=np.float32)
+                     for df in dfs], dtype=np.float64)
                 idf = np.zeros(Nn_b, dtype=np.float32)
-                idf[:idf_t.shape[0]] = idf_t
+                idf[:idf_host.shape[0]] = idf_host
         # dense or sparse driver: one dispatch, batched when possible;
         # None => no fused shape / match set exceeded the verify width.
         # (r5: the positional occurrence index no longer rides the
@@ -596,31 +601,82 @@ class SearchPipeline:
         # compaction widened that gap; the index itself stays for the
         # dump lifecycle and bench tooling, routed only by explicit
         # search_verified_positional calls.)
+        packed = ([] if dev_text.packed_row is None
+                  else [dev_text.packed_row])
         try:
             out_sv = device.search_and_verified(
                 tids, dev_text, ndl_p, nlens_p, n_b, desc,
                 score_mode=score_mode, idf=idf, k1=self.cfg.bm25.k1,
                 b=self.cfg.bm25.b, avgdl=self.sn.bm25.avg_doc_length,
                 nonoverlap=nonoverlap, require_match=require_match,
-                force_probes=force_probes, extra_words=extra)
+                force_probes=force_probes, extra_words=extra + packed)
         except FilterRowsRaced:
             return None  # raced a segment swap; exact path re-runs
         if out_sv is None:
             return None
         total, ids, scores, pre = out_sv
+        keep = ids >= 0
+        ids = ids[keep].astype(np.int64)
+        scores = scores[keep].astype(np.float64) if score_mode else None
+        if packed:
+            ov_ids, ov_scores, ov_and = self._fused_overflow(
+                query, device, dev_text, tids, needles, require_match,
+                idf_host)
+            total += int(ov_ids.size)
+            pre += ov_and
+            if ov_ids.size and query.type == QueryType.SEARCH:
+                ids = np.concatenate([ids, ov_ids])
+                if score_mode:
+                    scores = np.concatenate([scores, ov_scores])
+                    order = np.lexsort((-ids, -scores))  # ties: larger id
+                    scores = scores[order]
+                else:
+                    order = np.argsort(-ids if desc else ids)
+                ids = ids[order]
         if query.type == QueryType.COUNT:
             return total, np.empty(0, dtype=np.int32), None, terms
-        keep = ids >= 0
-        ids = ids[keep]
         page = ids[query.offset:query.offset + query.limit]
         page_scores = None
         if score_mode:
-            page_scores = scores[keep][
-                query.offset:query.offset + query.limit].astype(np.float64)
+            page_scores = scores[query.offset:query.offset + query.limit]
             if idf_scale_from_pre:
                 page_scores = page_scores * BM25Scorer.compute_idf(
                     self.sn.bm25.doc_count, pre)
         return total, page.astype(np.int32), page_scores, terms
+
+    def _fused_overflow(self, query: Query, device, dev_text, tids,
+                        needles: List[str], require_match: bool,
+                        idf_host: Optional[np.ndarray]):
+        """The fused query's part among the text store's overflow
+        documents, which its program leaves out: those holding every gram
+        (the host postings, tombstones out) and passing the filters,
+        verified where the verify filters (every needle occurs) and
+        scored in score mode (idf_host given), from the needles' counts
+        on the host (``DeviceTextStore.overflow_tf``). -> (their ids,
+        their BM25 scores or None, the gram-AND count among them before
+        the filters: the overflow's share of ``pre``)."""
+        from ..ops import runtime
+        from ..storage.device_text import host_bm25
+        with trace.span("verify.overflow", queries=1) as sp:
+            ids = device.host_and_among(dev_text.overflow_ids, tids)
+            n_and = int(ids.size)
+            if ids.size and query.filters:
+                ids = self._apply_filters(ids, query.filters)
+            sp.set(candidates=int(ids.size))
+            tf = np.zeros((0, len(needles)), dtype=np.int32)
+            dl = np.zeros(0, dtype=np.int32)
+            if ids.size:
+                runtime.count_overflow(int(ids.size))
+                tf, dl = dev_text.overflow_tf(ids, needles)
+                if require_match:
+                    keep = (tf > 0).all(axis=1)
+                    ids, tf, dl = ids[keep], tf[keep], dl[keep]
+            scores = None
+            if idf_host is not None:
+                scores = host_bm25(tf, dl, idf_host, self.cfg.bm25.k1,
+                                   self.cfg.bm25.b,
+                                   self.sn.bm25.avg_doc_length)
+        return ids.astype(np.int64), scores, n_and
 
     # ------------------------------------------------------------------
     # Top-N fast path (reference search_pipeline.h:348-367 shortcut,

@@ -324,6 +324,17 @@ class ServerCore:
             out = got if out is None else {k: out[k] + got[k] for k in out}
         return out
 
+    def verify_counters(self) -> Dict[str, int]:
+        """The fused verified path's overflow counters (process-wide) and
+        the gauge ``text_store_bytes``, this catalog's text stores' device
+        bytes."""
+        from ..ops import runtime
+        out = dict(runtime.overflow)
+        out["text_store_bytes"] = sum(
+            runtime.text_store_bytes.get(ctx.name, 0)
+            for ctx in self.catalog.contexts())
+        return out
+
     def _handle_info(self) -> str:
         s = self.stats
         sections = []
@@ -345,6 +356,7 @@ class ServerCore:
             sections.append(("Batcher", [
                 (f"batcher_{k}", f"{v:.6f}" if isinstance(v, float) else v)
                 for k, v in batcher.items()]))
+        sections.append(("Verify", list(self.verify_counters().items())))
         cmds = [(f"cmd_{k}", v) for k, v in sorted(
             s.command_counts().items()) if v > 0]
         if cmds:

@@ -448,6 +448,16 @@ class HttpServer:
                   "Seconds from a query's answer to its thread running")
         gauge("mygramdb_kernel_builds_total", runtime.kernel_builds,
               "CUDA kernel library builds by nvcc in this process")
+        v = self.core.verify_counters()
+        gauge("mygramdb_verify_overflow_queries_total",
+              v["verify_overflow_queries"],
+              "Fused verified queries with candidates the text store "
+              "does not pack")
+        gauge("mygramdb_verify_overflow_candidates_total",
+              v["verify_overflow_candidates"],
+              "Those candidates, verified or scored on the host")
+        gauge("mygramdb_text_store_bytes", v["text_store_bytes"],
+              "Device bytes of the tables' text stores")
         cs = self.core.cache.stats
         gauge("mygramdb_cache_hits_total", cs.hits, "Cache hits")
         gauge("mygramdb_cache_misses_total", cs.misses, "Cache misses")

@@ -474,8 +474,9 @@ class MicroBatcher:
             store, C, Cmax, limit_b, ndl, nlens, idx.n_words,
             descending, Kv=Kv, maxT=maxT, idf=idf, k1=k1, b=b_,
             avgdl=avgdl, score_mode=score_mode, nonoverlap=nonoverlap,
-            # needles cover every gram, so the verify subsumes probes —
-            # unless the caller needs pre = exact AND count (score df)
+            # needles cover every gram, so a verify that filters subsumes
+            # the probes — unless the caller needs pre = exact AND count
+            # (score df); one that does not filter probes every gram
             use_dense_probes=force_probes,
             require_match=require_match, extra=self._extra(q))
         if ph is not None:

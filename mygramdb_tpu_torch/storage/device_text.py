@@ -15,6 +15,15 @@ Offsets are one int64 tensor and the flat pack carries no pad tail: the
 kernels mask their loads by document length and pack end, so neither a
 2^31-cell limit nor a TPU tiling rule shapes the layout.
 
+Documents the store does not pack (longer than ``maxT``, non-BMP, past the
+rows) are its overflow: length 0 on the device, ``overflow_ids`` on the
+host, and, where there are any, one device word row ``packed_row`` (a bit
+a row, clear for an overflow document) that the fused verified program
+takes as a filter row, so that it answers over the packed documents and
+the caller verifies and scores the overflow ones on the host
+(``overflow_tf``, in their code points packed once on the host at the
+build).
+
 On a doc-sharded index (``doc_sharding``, the index's mesh) the padded
 matrix is built doc-sharded whenever the padded layout is taken: shard s
 holds rows ``[s * Ds, (s + 1) * Ds)`` and their lengths on its own device
@@ -71,6 +80,18 @@ def _pad_on_device(flat: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def host_bm25(tf: np.ndarray, dl: np.ndarray, idf: np.ndarray, k1: float,
+              b: float, avgdl: float) -> np.ndarray:
+    """(n,) float64 BM25 of the host fallback from tf (n, Nn), doc
+    lengths dl (n,) and idf (Nn,) (reference bm25_scorer.h:41, as
+    ``ops.verify_ops.bm25_scores`` on the device)."""
+    tff = tf.astype(np.float64)
+    norm = k1 * (1.0 - b + b * dl.astype(np.float64)[:, None] /
+                 max(avgdl, 1e-9))
+    return np.sum(np.asarray(idf, dtype=np.float64)[None, :] * tff
+                  * (k1 + 1.0) / np.maximum(tff + norm, 1e-9), axis=1)
+
+
 class TextShard:
     """Rows ``[lo, lo + rows)`` of a doc-sharded padded matrix on one
     device: what ``ops.fused`` and the exact path read of a store
@@ -107,6 +128,7 @@ class DeviceTextStore:
             "".join(texts_by_doc.values()).encode("utf-32-le"),
             dtype=np.uint32).copy()
         self._build(ids_arr, lens_arr, flat, capacity, device)
+        self._pack_overflow(lambda ids: [texts_by_doc.get(d) for d in ids])
 
     @classmethod
     def from_doc_store(cls, doc_store, capacity: int, device=None,
@@ -123,6 +145,7 @@ class DeviceTextStore:
         fast = cls._from_frozen_native(frozen, overlay, capacity, device,
                                        doc_sharding)
         if fast is not None:
+            fast._pack_overflow(doc_store.texts_batch)
             return fast
         ov_ids = np.asarray(list(overlay.keys()), dtype=np.int64)
         id_parts: List[np.ndarray] = []
@@ -156,6 +179,7 @@ class DeviceTextStore:
             np.concatenate(flat_parts) if flat_parts else
             np.zeros(0, dtype=np.uint32),
             capacity, device)
+        obj._pack_overflow(doc_store.texts_batch)
         return obj
 
     @classmethod
@@ -325,6 +349,53 @@ class DeviceTextStore:
         self.offsets_host = np.asarray(offsets, dtype=np.int64)
         self.offsets = runtime.to_device(self.offsets_host, self._device)
         self.lengths = runtime.to_device(self.lengths_host, self._device)
+        self._set_overflow()
+
+    def _set_overflow(self) -> None:
+        """``overflow_ids`` (sorted, the overflow documents among the
+        rows) and ``packed_row``: every bit set but those of the overflow
+        documents, a (ceil(capacity / 32),) word row on the home device,
+        or None when nothing overflows."""
+        ov = np.asarray(sorted(d for d in self._overflow
+                               if 0 < d < self.capacity), dtype=np.int64)
+        self.overflow_ids = ov
+        self.overflow_cells = self.overflow_offsets = None
+        self.packed_row = None
+        if ov.size:
+            words = np.full((self.capacity + 31) // 32, 0xFFFFFFFF,
+                            dtype=np.uint32)
+            np.bitwise_and.at(words, ov >> 5, np.bitwise_not(np.left_shift(
+                np.uint32(1), (ov & 31).astype(np.uint32))))
+            self.packed_row = runtime.to_device(words, self._device)
+
+    def _pack_overflow(self, texts_of) -> None:
+        """The overflow documents' code points, packed once on the host
+        (``native.pack_texts`` of ``texts_of(overflow_ids)``):
+        ``overflow_cells`` and ``overflow_offsets``, in ``overflow_ids``
+        order."""
+        self.overflow_cells, self.overflow_offsets = native.pack_texts(
+            texts_of(self.overflow_ids.tolist()))
+
+    def overflow_tf(self, ids: np.ndarray, terms: Sequence[str]):
+        """-> (tf (n, len(terms)) int32, doc lengths (n,) int32) of the
+        overflow documents ``ids`` (sorted, among ``overflow_ids``): the
+        terms' non-overlapping occurrences, counted on the host in the
+        packed code points (a store built from texts or a document store;
+        one built from host arrays, ``from_state``, holds none)."""
+        pos = np.searchsorted(self.overflow_ids, ids)
+        start = self.overflow_offsets[pos]
+        end = self.overflow_offsets[pos + 1]
+        off = np.zeros(ids.size + 1, dtype=np.int64)
+        np.cumsum(end - start, out=off[1:])
+        cells = np.concatenate([self.overflow_cells[a:e] for a, e in
+                                zip(start.tolist(), end.tolist())])
+        return native.count_occurrences_packed(cells, off, list(terms))
+
+    @property
+    def layout(self) -> str:
+        """``padded`` (the matrix, whole or doc-sharded) or ``flat``."""
+        return ("padded" if self.doc_sharded or self.codepoints.dim() == 2
+                else "flat")
 
     def _upload(self, flat: np.ndarray, offsets: np.ndarray,
                 lengths: np.ndarray, device, sentinel: int) -> None:
@@ -588,11 +659,7 @@ class DeviceTextStore:
         if host_ids.size:
             h_tf, h_dl = native.count_occurrences(
                 texts_fallback(host_ids.tolist()), list(terms))
-            tff = h_tf.astype(np.float64)
-            norm = k1 * (1.0 - b + b * h_dl.astype(np.float64)[:, None] /
-                         max(avgdl, 1e-9))
-            h_sc = np.sum(idf[None, :] * tff * (k1 + 1.0) /
-                          np.maximum(tff + norm, 1e-9), axis=1)
+            h_sc = host_bm25(h_tf, h_dl, idf, k1, b, avgdl)
             pairs.extend(zip(h_sc.tolist(), host_ids.tolist()))
         dev_ids = cand_ids[device_ok]
         if dev_ids.size:
@@ -618,15 +685,22 @@ class DeviceTextStore:
         return ids, scores
 
     def memory_usage(self) -> int:
-        """Device bytes: the pack or matrix, offsets and lengths (summed
-        over the shards of a doc-sharded store)."""
+        """Device bytes: the pack or matrix, offsets, lengths and the
+        overflow row (summed over the shards of a doc-sharded store)."""
         return sum(self.shard_memory())
 
     def shard_memory(self) -> List[int]:
         """Device bytes of each shard (one entry for a store that is not
-        doc-sharded)."""
+        doc-sharded); the overflow row counts on the first, whose device
+        is the home one."""
         if self.doc_sharded:
-            return [int(t.codepoints.numel() * t.codepoints.element_size()
-                        + t.lengths.numel() * 4) for t in self.shards]
-        return [int(self.codepoints.numel() * self.codepoints.element_size()
-                    + self.offsets.numel() * 8 + self.lengths.numel() * 4)]
+            out = [int(t.codepoints.numel() * t.codepoints.element_size()
+                       + t.lengths.numel() * 4) for t in self.shards]
+        else:
+            out = [int(self.codepoints.numel()
+                       * self.codepoints.element_size()
+                       + self.offsets.numel() * 8
+                       + self.lengths.numel() * 4)]
+        if self.packed_row is not None:
+            out[0] += int(self.packed_row.numel() * 4)
+        return out
